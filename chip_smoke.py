@@ -6,21 +6,32 @@
 Run from the root of a checkout. It
 
   1. prints the card's name and power limit;
-  2. builds the port's CUDA kernels from ``csrc/``;
-  3. holds each kernel against its plain PyTorch version on the card
-     (int32 counts, bit-equal) and times both with CUDA events;
-  4. runs ``Pipeline(device="cuda").analyze`` on the seed-42 fixture and
-     checks the golden values, that the kernel was launched, and that a
-     second run is bit-identical;
-  5. runs a 40,960-point sensor frame on the card and holds it against the
-     port's own CPU run (integers equal, floats within the tests'
-     tolerances);
-  6. prints the warm wall time of ``analyze`` at both sizes.
+  2. builds the port's CUDA kernels from ``csrc/`` (one nvcc per source,
+     all started together);
+  3. holds every kernel against its plain PyTorch version on the card
+     (integers bit-equal) and times both with CUDA events: ``radius_count``
+     at the pipeline's shapes and edge cases, the five column-table kernels
+     of the venue-scale clustering at the 1M-point scan's shapes and on
+     edge cases (an empty table, a full column and one past its cap,
+     neighbours at exactly eps, a chain across the whole grid, a scattered
+     mask);
+  4. runs ``Pipeline(device="cuda").analyze`` on the seed-42 fixture
+     (golden values, the kernel launched, a second run bit-identical, the
+     modular variant equal to the CPU);
+  5. runs a 40,960-point sensor frame and a 262,144-point venue on the
+     card and holds each against the port's own CPU run (integers equal,
+     floats within the tests' tolerances) and against the JAX package's
+     values on the CPU, recorded below;
+  6. runs a 1,000,000-point venue on the card (the column-grid clustering
+     and the bucketed density): the JAX package's recorded values, every
+     column kernel launched, a second run bit-identical;
+  7. prints the warm wall time of ``analyze`` at every size.
 
-The line before the last is a JSON record of the kernels; the last line
-is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
-that line is printed. Without a CUDA device, or outside the checkout, it
-exits non-zero and prints no result.
+Each pipeline run resets the launch counts just before it and reads them
+just after. The line before the last is a JSON record of the kernels; the
+last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero
+before that line is printed. Without a CUDA device, or outside the
+checkout, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -32,22 +43,55 @@ import sys
 import time
 
 RADIUS = 2.0
-KERNEL_SOURCE = ("lidar_ai_recommendation_software_tpu_torch/csrc/"
-                 "radius_count.cu")
-KERNEL_REPLACES = ("lidar_ai_recommendation_software_tpu/ops/pallas/"
-                   "kernels.py:76")
+PORT = "lidar_ai_recommendation_software_tpu_torch"
+JAX_PKG = "lidar_ai_recommendation_software_tpu"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "radius_count": (f"{PORT}/csrc/radius_count.cu",
+                     f"{JAX_PKG}/ops/pallas/kernels.py:76"),
+    "table_fill": (f"{PORT}/csrc/column_table.cu",
+                   f"{JAX_PKG}/ops/pallas/fill.py:177"),
+    "table_gather": (f"{PORT}/csrc/column_table.cu",
+                     f"{JAX_PKG}/ops/pallas/fill.py:280"),
+    "column_counts": (f"{PORT}/csrc/column_neighbours.cu",
+                      f"{JAX_PKG}/ops/ccl.py:325"),
+    "border_min": (f"{PORT}/csrc/column_neighbours.cu",
+                   f"{JAX_PKG}/ops/ccl.py:365"),
+    "propagate": (f"{PORT}/csrc/column_neighbours.cu",
+                  f"{JAX_PKG}/ops/ccl.py:545"),
+}
+COLUMN_KERNELS = tuple(KERNELS)[1:]
+# H100 SXM published peaks: HBM bandwidth, FP32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 # seed-42 fixture, monolith (the CPU oracle's values)
 GOLDEN = {"people": 446, "max_density": 3.5, "avg_density": 0.4958,
           "avg_speed": 1.2617, "direction": "E",
           "first_hotspot": (5.5, -10.5, 3.5), "n_hotspots": 5,
           "severities": [8, 8, 8, 7, 7]}
-# scaled_venue(40_960) through the JAX package on the CPU
+# scaled_venue(n) through the JAX package's Pipeline on the CPU
 JAX_REFERENCE_40960 = {"people": 1786, "max_density": 3.75,
                        "direction": "E", "severities": [9, 9, 9]}
+JAX_REFERENCE_262144 = {"people": 11644, "n_clusters": 11644,
+                        "max_density": 4.0,
+                        "avg_density": 0.49354320764541626,
+                        "direction": "E", "severities": [9, 9, 8]}
+JAX_REFERENCE_1M = {"people": 44449, "n_clusters": 44449,
+                    "max_density": 4.25,
+                    "avg_density": 0.49387937784194946,
+                    "direction": "E", "severities": [8, 8, 7, 7]}
 # flow vectors, speeds and centroids: sin/cos and sums differ in the last
 # ulps between the CPU and CUDA
 FLOAT_TOL = 1e-5
+
+
+def max_sweeps() -> int:
+    """The pipeline's bound on propagation sweeps: the configs'
+    ``max_cc_iters`` in units of the JAX package's 8-pass iterations."""
+    from lidar_ai_recommendation_software_tpu_torch import MONOLITH_CONFIG
+    from lidar_ai_recommendation_software_tpu_torch.ops import ccl
+    return MONOLITH_CONFIG.capacity.max_cc_iters * ccl.SWEEPS_PER_CC_ITER
 
 
 def phase(name: str) -> None:
@@ -97,6 +141,25 @@ def wall_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms, what bounds it): bytes over the HBM rate against
+    operations over the FP32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int_err(got, want) -> int:
+    import torch
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# radius_count
+# ---------------------------------------------------------------------------
+
 def radius_cases(dev):
     """(name, centers, people, pmask) at the shapes the pipeline gives the
     kernel, plus the edge cases."""
@@ -118,7 +181,7 @@ def radius_cases(dev):
     out = []
     for gx, k, live, span in ((64, 1280, 446, 30.0),
                               (96, 5120, 1786, 60.7),
-                              (128, 14336, 9000, 120.0)):
+                              (160, 32768, 11644, 160.0)):
         centres = grid_centres(gx, gx, (-span / 2, -span / 2))
         people = rng.uniform(-span / 2, span / 2, (k, 2))
         out.append(case(f"{gx * gx}x{k} live prefix {live}", centres,
@@ -138,16 +201,17 @@ def radius_cases(dev):
     return out
 
 
-def run_kernel_checks(dev) -> dict:
+def run_radius_checks(dev) -> dict:
     import torch
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
 
     max_err = 0
-    for name, c, p, m in radius_cases(dev):
+    cases = radius_cases(dev)
+    for name, c, p, m in cases:
         got = kernels.radius_count(c, p, m, RADIUS)
         want = kernels.radius_count_reference(c, p, m, RADIUS)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        err = int_err(got, want)
         print(f"radius_count {name}: max_abs_err {err}, total count "
               f"{int(want.sum())}")
         require(torch.equal(got, want), f"radius_count differs: {name}")
@@ -156,16 +220,253 @@ def run_kernel_checks(dev) -> dict:
                     "people exactly at the radius must count")
         max_err = max(max_err, err)
 
-    timings = {}
-    for name, c, p, m in radius_cases(dev)[:2]:
-        ms = cuda_ms(lambda: kernels.radius_count(c, p, m, RADIUS))
-        plain = cuda_ms(
-            lambda: kernels.radius_count_reference(c, p, m, RADIUS))
-        print(f"radius_count {name}: kernel {ms:.6f} ms, plain "
-              f"{plain:.6f} ms")
-        timings[name] = (ms, plain)
-    return {"max_abs_err": max_err, "timings": timings}
+    name, c, p, m = cases[1]  # the 40,960-point frame's shape
+    ms = cuda_ms(lambda: kernels.radius_count(c, p, m, RADIUS))
+    plain = cuda_ms(lambda: kernels.radius_count_reference(c, p, m, RADIUS))
+    print(f"radius_count {name}: kernel {ms:.6f} ms, plain {plain:.6f} ms")
+    ncent, k, live = c.shape[0], p.shape[0], int(m.sum())
+    # centres and people read once, counts written once; the loop stops at
+    # the live prefix: ~6 operations per live pair test
+    b_ms, b_by = bound(ncent * 8 + k * 9 + ncent * 4, ncent * live * 6)
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by}
 
+
+# ---------------------------------------------------------------------------
+# the column-table kernels
+# ---------------------------------------------------------------------------
+
+def column_cases():
+    """(name, points (N, 3) float32, mask (N,), eps, min_samples, ncx,
+    ncy, column cap) as numpy: the 1M-point scan's clustering input at
+    the capacities fit_capacity gives it, then the edge cases."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch import scaled_venue
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+
+    def padded(pts, n, mask=None):
+        buf = np.zeros((n, 3), np.float32)
+        buf[:len(pts)] = pts
+        m = np.zeros(n, bool)
+        m[:len(pts)] = True if mask is None else mask
+        return buf, m
+
+    out = []
+    venue = scaled_venue(1_000_000)
+    cap = Pipeline(device="cpu").fit_capacity(venue).capacity
+    # the clustering mask of the scan: non-ground, above the 30th z
+    # percentile (preprocess's ground split)
+    ng = venue[:, 2] > np.percentile(venue[:, 2], 30.0)
+    buf, m = padded(venue, cap.cluster_capacity, ng)
+    out.append(("1M scan", buf, m, 0.3, 5, cap.cluster_cells_x,
+                cap.cluster_cells_y, cap.cluster_column_cap))
+
+    rng = np.random.RandomState(1)
+    buf, _ = padded(rng.uniform(-5, 5, (4096, 3)), 4096)
+    out.append(("empty table", buf, np.zeros(4096, bool), 0.3, 5, 32, 32, 8))
+
+    # one point near every column centre of a 16 x 16 grid of columns a
+    # little over 0.3 m wide (the corners span 4.8 m); column (3, 3)
+    # filled to its cap of 8, column (10, 10) one past it
+    i, j = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    base = np.stack([(i.ravel() + 0.5) * 0.3, (j.ravel() + 0.5) * 0.3,
+                     np.zeros(256)], 1)
+    corners = np.array([[0.0, 0.0, 0.0], [4.8, 4.8, 0.0]])
+    extra = [np.array([[(c + 0.5) * 0.3, (c + 0.5) * 0.3, 0.0]])
+             + rng.uniform(-0.04, 0.04, (k, 3)) for c, k in ((3, 7), (10, 8))]
+    buf, m = padded(np.concatenate([corners, base] + extra), 512)
+    out.append(("full column and one past", buf, m, 0.3, 3, 16, 16, 8))
+
+    # pairs at exactly float32(eps) along y and z, and just beyond
+    e = np.float32(0.35)
+    beyond = np.nextafter(e, np.float32(1.0))
+    pts = []
+    for k in range(64):
+        x = np.float32(k)
+        pts += [[x, 0, 0], [x, e, 0], [x, 3, 0], [x, 3, e],
+                [x, 6, 0], [x, 6, beyond]]
+    buf, m = padded(np.array(pts, np.float32), 512)
+    out.append(("neighbours at exactly eps", buf, m, 0.35, 2, 64, 32, 8))
+
+    # one chain of points 0.285 m apart across all 1,024 columns, its
+    # smallest point index at the far end of the stream order
+    n_chain = 1078
+    xs = (n_chain - 1 - np.arange(n_chain)) * 0.285
+    buf, m = padded(np.stack([xs, np.zeros(n_chain), np.zeros(n_chain)], 1),
+                    2048)
+    out.append(("chain across the grid", buf, m, 0.3, 2, 1024, 8, 8))
+
+    # blobs and background, every other point masked at random
+    centres = rng.uniform(0, 30, (300, 2))
+    blob = centres[rng.randint(0, 300, 30000)] + rng.normal(0, 0.15,
+                                                            (30000, 2))
+    pts = np.concatenate([np.column_stack([blob, rng.uniform(0, 1.8, 30000)]),
+                          rng.uniform(0, 30, (20000, 3))])
+    buf, m = padded(pts, 65536, rng.rand(len(pts)) < 0.5)
+    out.append(("scattered mask", buf, m, 0.3, 5, 100, 100, 32))
+    return out
+
+
+def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
+                      cap, timed: bool) -> dict:
+    """Every column kernel against its plain version on one case; with
+    ``timed``, their CUDA-event times and bounds too."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops import ccl
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        columns as C)
+
+    p = torch.from_numpy(pts).to(dev)
+    m = torch.from_numpy(mask).to(dev)
+    py, ncells = ncy + 2, (ncx + 2) * (ncy + 2)
+    order, scid, cell_start = ccl.sorted_stream(p, m, eps, ncx, ncy)
+    bound_sweeps = max_sweeps()
+    errs = {}
+
+    def same(kernel, got, want):
+        torch.cuda.synchronize()
+        err = int_err(got, want)
+        errs[kernel] = max(errs.get(kernel, 0), err)
+        require(got.shape == want.shape and torch.equal(got, want),
+                f"{kernel} differs from its plain version: {name} "
+                f"(max abs err {err})")
+
+    fill_args = (p, order, scid, cell_start, ncells, cap)
+    tab, pst, ss, ov = C.table_fill(*fill_args)
+    for got, want in zip((tab.view(torch.int32), pst, ss, ov),
+                         C.table_fill_reference(*fill_args)):
+        same("table_fill", got, want.view(torch.int32)
+             if want.dtype == torch.float32 else want)
+    placed = ss >= 0
+    n_occ = int(placed.sum())
+
+    nb_args = (tab, ss, py, cap, eps)
+    counts = C.column_counts(*nb_args)
+    same("column_counts", counts, C.column_counts_reference(*nb_args))
+    core = placed & (counts >= min_samples)
+    labels0 = torch.where(core, order, C.INT_MAX)
+    lab = labels0.clone()
+    sweeps = C.propagate(tab, ss, pst, py, cap, eps, lab, bound_sweeps)
+    lab_ref = labels0.clone()
+    C.propagate_reference(tab, ss, pst, py, cap, eps, lab_ref, bound_sweeps)
+    same("propagate", lab, lab_ref)
+    require(sweeps < bound_sweeps, f"{name}: propagation took {sweeps} "
+            f"sweeps, the bound is {bound_sweeps}")
+    bmin = C.border_min(*nb_args, lab)
+    same("border_min", bmin, C.border_min_reference(*nb_args, lab))
+    final = torch.where(core, lab, bmin)
+    got = C.table_gather(final, pst, C.INT_MAX)
+    same("table_gather", got, C.table_gather_reference(final, pst,
+                                                       C.INT_MAX))
+    n_clusters = int(torch.unique(got[got != C.INT_MAX]).numel())
+    print(f"columns {name}: {int(mask.sum())} valid points, {n_occ} placed, "
+          f"overflow {int(ov)}, {int(core.sum())} core, {n_clusters} "
+          f"clusters, {sweeps} propagation sweeps; max_abs_err "
+          f"{max(errs.values())}")
+
+    if name == "full column and one past":
+        require(int(ov) == 1, "one point past a full column is overflow")
+    if name == "neighbours at exactly eps":
+        # points 0, 1 are eps apart (y), 2, 3 too (z); 4, 5 just beyond
+        c = C.table_gather(counts, pst, -1)[:6].tolist()
+        require(c == [2, 2, 2, 2, 1, 1], f"counts at eps: {c}")
+    if name == "chain across the grid":
+        require(n_clusters == 1, f"the chain is one cluster, got "
+                f"{n_clusters}")
+    if name == "empty table":
+        require(n_occ == 0 and n_clusters == 0, "the empty table")
+    if not timed:
+        return {"errs": errs}
+
+    # the work of this run's table, for the bounds
+    def grid(stream_positions):
+        slots = ss[stream_positions].to(torch.int64)
+        return torch.bincount(slots // cap, minlength=ncells).reshape(
+            ncx + 2, py)
+
+    def window(g):  # 3x3 sums; the border columns are empty
+        pad = torch.nn.functional.pad(g, (1, 1, 1, 1))
+        return sum(pad[1 + dx:1 + dx + ncx + 2, 1 + dy:1 + dy + py]
+                   for dx in (-1, 0, 1) for dy in (-1, 0, 1))
+
+    occ, core_occ = grid(placed), grid(core)
+    win = window(occ)
+
+    def slots_read(threads):
+        """Slots a scan must read once: in every column next to a column
+        with threads, its occupied slots and, unless full, the empty slot
+        that ends them."""
+        visited = window(threads) > 0
+        return int((visited * (occ + 1).clamp_max(cap)).sum())
+
+    pairs = int((occ * win).sum())
+    core_pairs = int((core_occ * win).sum())
+    scan, core_scan = slots_read(occ), slots_read(core_occ)
+    n_changed = int((lab != labels0).sum())
+    n, s = pts.shape[0], tab.shape[0]
+    work = {  # (bytes: each input read once and each output written once,
+        #          as far as this run's data needs them; operations: 9 per
+        #          pair test)
+        # table written whole; order, scid read, the placed points' xyz,
+        # cell_start; stream_slot and point_stream written
+        "table_fill": (16 * s + 8 * n + 12 * n_occ + 4 * (ncells + 1)
+                       + 8 * n, 0),
+        # point_stream read, the placed points' values, out written
+        "table_gather": (4 * n + 4 * n_occ + 4 * n, 0),
+        # stream_slot, the scanned slots, out
+        "column_counts": (4 * n + 16 * scan + 4 * n, 9 * pairs),
+        # and the placed points' labels
+        "border_min": (4 * n + 16 * scan + 4 * n_occ + 4 * n, 9 * pairs),
+        # per sweep stream_slot, the placed points' labels and the slots
+        # the core points scan; each label that changes written once
+        "propagate": (sweeps * (4 * n + 4 * n_occ + 16 * core_scan)
+                      + 4 * n_changed, sweeps * 9 * core_pairs),
+    }
+    print(f"columns {name}: {pairs} pair tests per neighbourhood pass, "
+          f"{core_pairs} from core points; {scan} slots scanned, "
+          f"{core_scan} by core points; {n_changed} labels changed")
+    calls = {
+        "table_fill": (lambda: C.table_fill(*fill_args),
+                       lambda: C.table_fill_reference(*fill_args)),
+        "table_gather": (lambda: C.table_gather(final, pst, C.INT_MAX),
+                         lambda: C.table_gather_reference(final, pst,
+                                                          C.INT_MAX)),
+        "column_counts": (lambda: C.column_counts(*nb_args),
+                          lambda: C.column_counts_reference(*nb_args)),
+        "border_min": (lambda: C.border_min(*nb_args, lab),
+                       lambda: C.border_min_reference(*nb_args, lab)),
+        "propagate": (
+            lambda: C.propagate(tab, ss, pst, py, cap, eps, labels0.clone(),
+                                bound_sweeps),
+            lambda: C.propagate_reference(tab, ss, pst, py, cap, eps,
+                                          labels0.clone(), bound_sweeps)),
+    }
+    times = {}
+    for kernel, (fast, plain) in calls.items():
+        ms, plain_ms = cuda_ms(fast), cuda_ms(plain, iters=5)
+        b_ms, b_by = bound(*work[kernel])
+        times[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+        print(f"{kernel} at the {name}: kernel {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"errs": errs, "times": times}
+
+
+def run_column_checks(dev) -> dict:
+    """Every case; the times of the 1M-point scan's."""
+    errs = {k: 0 for k in COLUMN_KERNELS}
+    times = None
+    for name, *args in column_cases():
+        res = check_column_case(dev, name, *args, timed=name == "1M scan")
+        for k, e in res["errs"].items():
+            errs[k] = max(errs[k], e)
+        times = res.get("times", times)
+    return {"errs": errs, "times": times}
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
 
 def host_arrays(out):
     """Every output of analyze() as numpy, for bit comparison."""
@@ -233,6 +534,35 @@ def check_same(a: dict, b: dict, exact_floats: bool, what: str) -> None:
             require(err <= FLOAT_TOL, f"{what}: {key} off by {err}")
 
 
+def check_jax_reference(out, ref: dict, what: str) -> None:
+    d, f = out["density"], out["flow"]
+    got = {"people": d["total_people"],
+           "n_clusters": int(out["processed"].n_clusters),
+           "max_density": d["max_density"], "avg_density": d["avg_density"],
+           "direction": f["dominant_direction"],
+           "severities": [b["severity"] for b in f["bottlenecks"]]}
+    print(f"{what}: {got}")
+    print(f"JAX package on the CPU (recorded): {ref}")
+    for key, want in ref.items():
+        if key == "avg_density":
+            require(abs(got[key] - want) <= 1e-6, f"{what}: {key}")
+        else:
+            require(got[key] == want, f"{what}: {key} {got[key]} vs {want}")
+
+
+def traced_run(pipe, points, what: str) -> tuple:
+    """One analyze with the launch counts set to 0 just before it and read
+    just after."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    kernels.reset_launch_counts()
+    out = pipe.analyze(points)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"launches in the {what} run: {launches}")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -261,17 +591,19 @@ def main() -> int:
         print(log.read_text().strip())
 
     phase("radius_count kernel against its plain version")
-    kres = run_kernel_checks(dev)
+    radius = run_radius_checks(dev)
+
+    phase("column-table kernels against their plain versions")
+    t0 = time.perf_counter()
+    cols = run_column_checks(dev)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("seed-42 fixture on the card")
     fixture = sample_venue()
     pipe = Pipeline(device="cuda")
-    kernels.reset_launch_counts()
-    golden = pipe.analyze(fixture)
-    torch.cuda.synchronize()
-    launches_golden = kernels.LAUNCHES["radius_count"]
-    print(f"radius_count launches in the fixture run: {launches_golden}")
-    require(launches_golden > 0, "the fixture run did not launch the kernel")
+    golden, launches = traced_run(pipe, fixture, "fixture")
+    require(launches["radius_count"] > 0,
+            "the fixture run did not launch radius_count")
     check_golden(golden)
     again = pipe.analyze(fixture)
     check_same(host_arrays(golden), host_arrays(again), True,
@@ -284,44 +616,73 @@ def main() -> int:
     print(f"modular fixture: people {mod_gpu['density']['total_people']}, "
           f"card equals CPU")
 
-    phase("40,960-point sensor frame, card vs the port on the CPU")
-    frame = scaled_venue(40_960)
-    kernels.reset_launch_counts()
-    big = pipe.analyze(frame)
-    torch.cuda.synchronize()
-    launches = kernels.LAUNCHES["radius_count"]
-    print(f"radius_count launches in the 40,960-point run: {launches}")
-    require(launches > 0, "the 40,960-point run did not launch the kernel")
-    big_cpu = Pipeline(device="cpu").analyze(frame)
-    check_same(host_arrays(big), host_arrays(big_cpu), False,
-               "40,960 points, card vs CPU")
-    for name, out in (("card", big), ("port on CPU", big_cpu)):
-        d, f = out["density"], out["flow"]
-        print(f"{name}: people {d['total_people']}, max_density "
-              f"{d['max_density']}, direction {f['dominant_direction']}, "
-              f"severities {[b['severity'] for b in f['bottlenecks']]}")
-    print(f"JAX package on the CPU (recorded): {JAX_REFERENCE_40960}")
-    ref = JAX_REFERENCE_40960
-    require(big["density"]["total_people"] == ref["people"], "people")
-    require(big["density"]["max_density"] == ref["max_density"],
-            "max_density")
-    require(big["flow"]["dominant_direction"] == ref["direction"],
-            "direction")
-    require([b["severity"] for b in big["flow"]["bottlenecks"]]
-            == ref["severities"], "severities")
+    venues = {}
+    for n, ref, kernels_used in (
+            (40_960, JAX_REFERENCE_40960, ("radius_count",)),
+            (262_144, JAX_REFERENCE_262144, KERNELS)):
+        phase(f"{n:,}-point venue, card vs the port on the CPU")
+        t0 = time.perf_counter()
+        venues[n] = scaled_venue(n)
+        out, launches = traced_run(pipe, venues[n], f"{n:,}-point")
+        for k in kernels_used:
+            require(launches[k] > 0, f"the {n:,}-point run did not launch "
+                    f"{k}")
+        if launches["table_fill"]:
+            sweeps = launches["propagate"] / launches["table_fill"]
+            print(f"propagation sweeps per clustering: {sweeps}")
+            require(sweeps < max_sweeps(), f"{sweeps} sweeps, the bound "
+                    f"is {max_sweeps()}")
+        cpu = Pipeline(device="cpu").analyze(venues[n])
+        check_same(host_arrays(out), host_arrays(cpu), False,
+                   f"{n:,} points, card vs CPU")
+        print("card equals the port on the CPU: yes")
+        check_jax_reference(out, ref, f"card, {n:,} points")
+        if n == 40_960:
+            radius["launches"] = launches["radius_count"]
+        print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("1,000,000-point venue on the card")
+    t0 = time.perf_counter()
+    venues[1_000_000] = big = scaled_venue(1_000_000)
+    out, launches_1m = traced_run(pipe, big, "1,000,000-point")
+    for k in COLUMN_KERNELS:
+        require(launches_1m[k] > 0, f"the 1M-point run did not launch {k}")
+    runs = launches_1m["table_fill"]
+    sweeps = launches_1m["propagate"] / runs
+    print(f"clustering runs: {runs}, propagation sweeps per run: {sweeps}")
+    require(sweeps < max_sweeps(), f"{sweeps} sweeps, the bound is "
+            f"{max_sweeps()}")
+    check_jax_reference(out, JAX_REFERENCE_1M, "card, 1,000,000 points")
+    again = pipe.analyze(big)
+    check_same(host_arrays(out), host_arrays(again), True,
+               "second 1M-point run")
+    print("second run bit-identical: yes")
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("warm wall time of analyze on the card")
     for name, pts in (("10,000-point fixture", fixture),
-                      ("40,960-point frame", frame)):
+                      *((f"{n:,}-point venue", v)
+                        for n, v in venues.items())):
+        t0 = time.perf_counter()
         ms = wall_ms(lambda: pipe.analyze(pts))
         print(f"analyze {name}: median {ms:.3f} ms of 5 (warm, "
-              f"synchronised) on {ident}")
+              f"synchronised) on {ident}; phase "
+              f"{time.perf_counter() - t0:.3f} s")
 
-    ms, plain = kres["timings"]["9216x5120 live prefix 1786"]
-    print(json.dumps({"kernels": [{
-        "name": "radius_count", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": kres["max_abs_err"], "ms": ms, "plain_ms": plain}]}))
+    records = [dict(name="radius_count", route="cuda",
+                    source=KERNELS["radius_count"][0],
+                    replaces=KERNELS["radius_count"][1],
+                    launches=radius["launches"],
+                    max_abs_err=radius["max_abs_err"], ms=radius["ms"],
+                    plain_ms=radius["plain_ms"],
+                    bound_ms=radius["bound_ms"],
+                    bound_by=radius["bound_by"], library_ms=None)]
+    for k in COLUMN_KERNELS:
+        records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
+                            replaces=KERNELS[k][1], launches=launches_1m[k],
+                            max_abs_err=cols["errs"][k], **cols["times"][k],
+                            library_ms=None))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

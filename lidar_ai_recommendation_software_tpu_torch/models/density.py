@@ -6,7 +6,9 @@ density modes:
 
   - "radius" (monolith): people within ``radius`` of each cell centre,
     divided by the reference's 4 m^2; the count is the ``radius_count``
-    kernel (``ops/cuda/kernels.py``).
+    kernel (``ops/cuda/kernels.py``), or above ``BUCKETED_MIN_PAIRS``
+    cell x people pair tests the bucketed count
+    (``ops/bucket_density.py``).
   - "histogram" (modular): np.histogram2d semantics with a 2-cell margin.
 
 Hotspots are a top-k over the flattened grid in the reference's scan
@@ -20,14 +22,15 @@ from typing import Tuple
 
 import torch
 
-from lidar_ai_recommendation_software_tpu.config import PipelineConfig
-from lidar_ai_recommendation_software_tpu_torch.ops import clustering
+from lidar_ai_recommendation_software_tpu_torch.config import PipelineConfig
+from lidar_ai_recommendation_software_tpu_torch.ops import (
+    bucket_density, clustering)
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
 from lidar_ai_recommendation_software_tpu_torch.types import (
     DensityResults, People, ProcessedCloud)
 
-# Above this many cell x people pair tests the JAX package buckets people
-# into a radius-sized coarse grid (ops/bucket_density.py).
+# Above this many cell x people pair tests people are bucketed into a
+# radius-sized coarse grid (ops/bucket_density.py), as in the JAX package.
 BUCKETED_MIN_PAIRS = 1 << 32
 
 
@@ -51,22 +54,26 @@ def radius_count_grid(people: People, origin: torch.Tensor,
                       bucket_cap: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """People within ``radius`` of each cell centre, x-major (GX, GY)
-    int32, and the number of people dropped (always 0 here).
+    int32, and the number of people dropped by a full coarse bucket (0 on
+    the all-pairs path, which is always exact).
 
     Cell (i, j) has its centre at origin + (i + 0.5, j + 0.5) * grid_size;
-    cells past (nx, ny) count 0."""
+    cells past (nx, ny) count 0. With ``bucket_cap`` > 0 and at least
+    ``BUCKETED_MIN_PAIRS`` pair tests, people are bucketed
+    (``ops/bucket_density.py``); the counts are the same."""
     k = people.positions.shape[0]
-    if bucket_cap > 0 and gx_cap * gy_cap * k >= BUCKETED_MIN_PAIRS:
-        raise NotImplementedError(
-            f"{gx_cap}x{gy_cap} cells x {k} people needs the bucketed "
-            f"radius count (ROADMAP queue 1, item 6: ops/bucket_density.py), "
-            f"which the PyTorch port does not have yet")
     dt = people.positions.dtype
     dev = people.positions.device
-    g = torch.tensor(grid_size, dtype=dt, device=dev)
     flat = torch.arange(gx_cap * gy_cap, dtype=torch.int32, device=dev)
     ci = flat // gy_cap
     cj = flat % gy_cap
+    if bucket_cap > 0 and gx_cap * gy_cap * k >= BUCKETED_MIN_PAIRS:
+        counts, overflow = bucket_density.radius_count_bucketed(
+            people.positions, people.mask, origin, gx_cap, gy_cap,
+            grid_size, radius, bucket_cap)
+        cell_valid = ((ci < nx) & (cj < ny)).reshape(gx_cap, gy_cap)
+        return torch.where(cell_valid, counts, 0), overflow
+    g = torch.tensor(grid_size, dtype=dt, device=dev)
     centers = torch.stack([origin[0] + (ci.to(dt) + 0.5) * g,
                            origin[1] + (cj.to(dt) + 0.5) * g], dim=1)
     cell_valid = (ci < nx) & (cj < ny)

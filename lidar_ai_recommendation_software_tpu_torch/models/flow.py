@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lidar_ai_recommendation_software_tpu.config import PipelineConfig
+from lidar_ai_recommendation_software_tpu_torch.config import PipelineConfig
 from lidar_ai_recommendation_software_tpu_torch.types import (
     FlowResults, People, ProcessedCloud)
 

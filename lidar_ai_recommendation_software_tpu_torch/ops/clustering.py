@@ -10,9 +10,11 @@ cluster's smallest point index.
 
 This module holds the all-pairs backend, which serves clustering buffers
 of up to ``BRUTEFORCE_MAX_POINTS`` points (and the modular variant up to
-``BRUTEFORCE_HARD_CAP``). The eps-adjacency is kept as a list of edges:
-at the monolith's eps = 0.3 m a point has a handful of neighbours, so a
-sweep over the edge list touches far less memory than a dense adjacency.
+``BRUTEFORCE_HARD_CAP``), and the dispatch to the column-grid backend
+above that (``ops/ccl.py``). The eps-adjacency is kept as a list of
+edges: at the monolith's eps = 0.3 m a point has a handful of neighbours,
+so a sweep over the edge list touches far less memory than a dense
+adjacency.
 """
 
 from __future__ import annotations
@@ -21,21 +23,21 @@ from typing import Tuple
 
 import torch
 
-INT_MAX = 2 ** 31 - 1
+from lidar_ai_recommendation_software_tpu_torch.ops import ccl
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda.columns import (
+    INT_MAX)
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
+    PAIRS_PER_CHUNK)
 
 # Largest clustering buffer the all-pairs backend takes for the monolith
-# variant; above it the JAX package switches to the column-grid
-# connected-components kernels, which the port does not have yet.
+# variant; above it the column-grid connected components take over, as in
+# the JAX package.
 BRUTEFORCE_MAX_POINTS = 32768
 
 # Largest buffer of the modular variant, whose eps = 0.5 sigma in
 # standardised space admits no spatial decomposition (the same ceiling as
 # the JAX package's).
 BRUTEFORCE_HARD_CAP = 131072
-
-# Pair tests per chunk of the all-pairs distance pass (bounds the
-# temporaries at a few hundred MB).
-_PAIRS_PER_CHUNK = 1 << 24
 
 
 def _eps_edges(points: torch.Tensor, mask: torch.Tensor, eps: float
@@ -50,7 +52,7 @@ def _eps_edges(points: torch.Tensor, mask: torch.Tensor, eps: float
     n, d = points.shape
     e = torch.tensor(eps, dtype=points.dtype, device=points.device)
     r2 = e * e
-    chunk = max(1, _PAIRS_PER_CHUNK // max(n, 1))
+    chunk = max(1, PAIRS_PER_CHUNK // max(n, 1))
     rows, cols = [], []
     for s in range(0, n, chunk):
         q = points[s:s + chunk]
@@ -114,34 +116,30 @@ def dbscan_bruteforce(points: torch.Tensor, mask: torch.Tensor, eps: float,
     labels = torch.where(mask & ~core & (border_min != INT_MAX), border_min,
                          labels)
     labels = torch.where(labels == INT_MAX, -1, labels)
-
-    is_rep = (labels == idx) & core
-    dense_minus1 = torch.cumsum(is_rep.to(torch.int64), 0) - 1
-    dense = torch.where(labels >= 0, dense_minus1[labels.clamp(0, n - 1)],
-                        -1)
-    return (dense.to(torch.int32), is_rep.sum(dtype=torch.int32),
-            torch.zeros((), dtype=torch.int32, device=dev))
+    dense, n_clusters = ccl.dense_ids(labels)
+    return dense, n_clusters, torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def dbscan_labels(points: torch.Tensor, mask: torch.Tensor, eps: float,
-                  min_samples: int, max_iters: int = 40,
+                  min_samples: int, ncx: int = 128, ncy: int = 128,
+                  column_cap: int = 64, max_iters: int = 40,
                   brute_cap: int = BRUTEFORCE_MAX_POINTS
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cluster padded ``points`` (N, D): (labels (N,) int32 with -1 noise,
-    n_clusters () int32, overflow () int32).
+    n_clusters () int32, overflow () int32 = points dropped by a full
+    column; 0 means the result is exact).
 
-    ``brute_cap`` raises the all-pairs ceiling; the modular variant passes
-    ``BRUTEFORCE_HARD_CAP``. A larger monolith buffer needs the
-    venue-scale column-grid clustering, which is not ported yet."""
+    Buffers of up to ``max(brute_cap, BRUTEFORCE_MAX_POINTS)`` points take
+    the all-pairs backend (the modular variant passes
+    ``BRUTEFORCE_HARD_CAP``: its eps is macroscopic in standardised space,
+    where columns degenerate); larger ones the column-grid backend
+    (``ccl.dbscan_gs``) on a ``ncx`` x ``ncy`` grid of ``column_cap``
+    slots, on every device."""
     if points.shape[0] <= max(brute_cap, BRUTEFORCE_MAX_POINTS):
         return dbscan_bruteforce(points, mask, eps, min_samples,
                                  max_iters=max_iters)
-    raise NotImplementedError(
-        f"a clustering buffer of {points.shape[0]} points needs the "
-        f"venue-scale column-grid clustering (ROADMAP queue 1, item 4: "
-        f"venue-scale clustering), which the PyTorch port does not have "
-        f"yet; it clusters buffers of up to {BRUTEFORCE_MAX_POINTS} points "
-        f"(clouds of up to 40,960 points)")
+    return ccl.dbscan_gs(points, mask, eps, min_samples, ncx=ncx, ncy=ncy,
+                         column_cap=column_cap, max_iters=max_iters)
 
 
 def cluster_centroids(points: torch.Tensor, labels: torch.Tensor,

@@ -1,17 +1,19 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a), their loader, and their
-plain PyTorch versions.
+"""Hand-written CUDA kernels for Hopper (sm_90a), their loader, and the
+``radius_count`` kernel's wrapper and plain PyTorch version.
 
-The counterpart of the JAX package's ``ops/pallas/kernels.py``. Each
-kernel has a wrapper that dispatches on the device of its tensors: a CPU
-tensor goes to the plain version in this module; a CUDA tensor goes to
-the kernel, and a kernel that fails to build or launch raises. The plain
-versions are what the CPU tests run and what the kernels are compared
-with on the card.
+The counterpart of the JAX package's ``ops/pallas/kernels.py``; the
+column-table kernels of the venue-scale clustering are wrapped in
+``columns.py`` beside this module. Each kernel has a wrapper that
+dispatches on the device of its tensors: a CPU tensor goes to the plain
+version; a CUDA tensor goes to the kernel, and a kernel that fails to
+build or launch raises. The plain versions are what the CPU tests run and
+what the kernels are compared with on the card.
 
-Build: the sources under ``csrc/`` are compiled by ``nvcc`` into one
-shared library with a plain C interface at first use, into ``_build/``
-inside the package, under a name keyed on a hash of the sources and the
-flags (an edited source rebuilds), and loaded with ``ctypes``.
+Build: at first use every source under ``csrc/`` is compiled by its own
+``nvcc`` process, all started together, and the objects are linked into
+one shared library with a plain C interface, in ``_build/`` inside the
+package, under a name keyed on a hash of the sources and the flags (an
+edited source rebuilds); the library is loaded with ``ctypes``.
 
 Every wrapper adds one to its entry of ``LAUNCHES`` where it launches its
 kernel, so a run can show that it went through the kernels.
@@ -34,12 +36,26 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"radius_count": 0}
+LAUNCHES = {"radius_count": 0, "table_fill": 0, "table_gather": 0,
+            "column_counts": 0, "border_min": 0, "propagate": 0}
 
-# Pair tests per chunk of a plain version (bounds its temporaries).
-_PAIRS_PER_CHUNK = 1 << 24
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of each launch function in csrc/ (pointers and the stream
+# as c_void_p: a bare Python int would be cut to 32 bits)
+_SIGNATURES = {
+    "radius_count_launch": [_P, _P, _P, _P, _F, _I, _I, _P, _P],
+    "table_fill_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "table_gather_launch": [_P, _P, _I, _I, _P, _P],
+    "column_counts_launch": [_P, _P, _I, _I, _I, _F, _P, _P],
+    "border_min_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "propagate_launch": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+}
+
+# Pair tests per chunk of the plain all-pairs passes, here and in
+# ``ops/clustering.py`` (bounds their temporaries at a few hundred MB).
+PAIRS_PER_CHUNK = 1 << 24
 
 
 def reset_launch_counts() -> None:
@@ -68,29 +84,55 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkernels_{digest.hexdigest()[:16]}.so"
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library. The
-    compiler's report (registers, shared memory, spills) is kept beside
-    it as ``.log``."""
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+def _build(so: Path) -> None:
+    """Compile every source with its own nvcc, all at once, then link.
+    The compilers' reports (registers, shared memory, spills) are kept
+    beside the library as ``.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    reports, failed = [], []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        reports.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = so.with_name(f"{tag}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stderr}")
-        so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        so.with_suffix(".log").write_text("\n".join(reports))
         os.replace(tmp, so)  # atomic: a concurrent build never sees half
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernels' shared library."""
+    so = library_path()
+    if not so.exists():
+        _build(so)
     lib = ctypes.CDLL(str(so))
-    fn = lib.radius_count_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -129,7 +171,7 @@ def radius_count_reference(centers: torch.Tensor, people: torch.Tensor,
     c, k = centers.shape[0], people.shape[0]
     r2 = torch.tensor(_radius_sq(radius), dtype=centers.dtype,
                       device=centers.device)
-    chunk = max(1, _PAIRS_PER_CHUNK // max(k, 1))
+    chunk = max(1, PAIRS_PER_CHUNK // max(k, 1))
     out = [torch.zeros(0, dtype=torch.int32, device=centers.device)]
     for s in range(0, c, chunk):
         q = centers[s:s + chunk]

@@ -17,9 +17,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from lidar_ai_recommendation_software_tpu.config import (
+from lidar_ai_recommendation_software_tpu_torch.config import (
     MONOLITH_CONFIG, PipelineConfig)
-from lidar_ai_recommendation_software_tpu.utils.recommendations import (
+from lidar_ai_recommendation_software_tpu_torch.utils.recommendations import (
     generate_recommendations)
 from lidar_ai_recommendation_software_tpu_torch.models import (
     density as density_mod)
@@ -71,10 +71,12 @@ class Pipeline:
             dtype=torch.float32, device=self.device)
 
     def fit_capacity(self, points: np.ndarray) -> PipelineConfig:
-        """Size static capacities to the input, bucketed to eighths of an
-        octave: point capacity covers n, the density/flow grid covers the
-        venue extent, the people capacity scales with the point count,
-        and the clustering buffer is the next power of two of 0.8 n."""
+        """Size static capacities to the input, as the JAX package does,
+        so both packages pick the same ones: point and people capacities
+        bucketed to eighths of an octave, the density/flow grid covering
+        the venue extent, the clustering buffer the next power of two of
+        0.8 n, and the clustering column grid (eps-sized columns, at most
+        1,280 a side) with a column cap measured from the points."""
         cap = self.config.capacity
         n = len(points)
         max_points = max(cap.max_points, _bucket_eighth_octave(n))
@@ -94,19 +96,56 @@ class Pipeline:
         max_people = max(cap.max_people,
                          _bucket_eighth_octave(max(1, n // 8), floor=32))
 
+        # Cluster column grid: eps-sized columns, bounded so the table
+        # stays within device memory. Pair tests per sweep are
+        # ncells * 9 * column_cap^2 at worst, so columns are fine and the
+        # cap is sized to the measured occupancy (the overflow retry
+        # doubles it on adversarial scenes).
+        eps = self.config.preprocess.dbscan_eps
+        ccx = bucket32(min(int((maxs[0] - mins[0]) / eps) + 2, 1280),
+                       cap.cluster_cells_x)
+        ccy = bucket32(min(int((maxs[1] - mins[1]) / eps) + 2, 1280),
+                       cap.cluster_cells_y)
+
         # ~70% of points are non-ground; the next power of two of 0.8 n
         # leaves headroom, and the overflow retry covers the rest.
         ccap = 1 << max(10, (max(1, int(0.8 * n)) - 1).bit_length())
         ccap = min(ccap, max_points)
 
+        def ceil8(v):
+            return ((int(v) + 7) // 8) * 8
+
+        # Column cap from the measured occupancy: one host bincount of the
+        # columns the device will use gives the largest column; +3 covers
+        # the slightly different extent of the non-ground subset that is
+        # clustered (the overflow retry guards exactness).
+        if n > 32768:  # column path only (small sets take the all-pairs)
+            cell = max(eps, (maxs[:2] - mins[:2]).max() / (min(ccx, ccy)
+                                                           - 1e-3))
+            cxi = np.clip(((points[:, 0] - mins[0]) / cell).astype(
+                np.int64), 0, ccx - 1)
+            cyi = np.clip(((points[:, 1] - mins[1]) / cell).astype(
+                np.int64), 0, ccy - 1)
+            max_occ = int(np.bincount(cxi * ccy + cyi).max())
+            ccol = min(64, max(8, ceil8(max_occ + 3)))
+        else:
+            occ = 0.8 * n / float(ccx * ccy)
+            ccol = min(64, max(16, ceil8(8.0 * occ + 8.0)))
+            ccol = max(ccol, cap.cluster_column_cap)
+
         if (max_points == cap.max_points and gx == cap.grid_cells_x
                 and gy == cap.grid_cells_y
                 and max_people == cap.max_people
-                and ccap == cap.cluster_capacity):
+                and ccx == cap.cluster_cells_x
+                and ccy == cap.cluster_cells_y
+                and ccap == cap.cluster_capacity
+                and ccol == cap.cluster_column_cap):
             return self.config
         return self.config.with_capacity(
             max_points=max_points, grid_cells_x=gx, grid_cells_y=gy,
-            max_people=max_people, cluster_capacity=ccap)
+            max_people=max_people, cluster_cells_x=ccx,
+            cluster_cells_y=ccy, cluster_capacity=ccap,
+            cluster_column_cap=ccol)
 
     def analyze_device(self, cloud: PointCloud,
                        config: Optional[PipelineConfig] = None):
@@ -120,16 +159,21 @@ class Pipeline:
 
     def _grown_cluster_cfg(self, cfg: PipelineConfig
                            ) -> Optional[PipelineConfig]:
-        """Double the clustering buffer after an overflow; None when it
-        sits at its ceiling (max_points, or BRUTEFORCE_HARD_CAP for the
-        modular variant)."""
+        """Double the clustering capacities after an overflow: the column
+        cap up to 512 and the buffer up to max_points (BRUTEFORCE_HARD_CAP
+        for the modular variant). None when both sit at their ceiling."""
         cap_limit = cfg.capacity.max_points
         if self.config.preprocess.variant == "modular":
             cap_limit = min(cap_limit, clustering.BRUTEFORCE_HARD_CAP)
-        if cfg.capacity.cluster_capacity >= cap_limit:
+        if (cfg.capacity.cluster_column_cap >= 512
+                and cfg.capacity.cluster_capacity >= cap_limit):
             return None
-        return cfg.with_capacity(cluster_capacity=min(
-            cap_limit, max(1, cfg.capacity.cluster_capacity) * 2))
+        return cfg.with_capacity(
+            cluster_column_cap=min(512,
+                                   cfg.capacity.cluster_column_cap * 2),
+            cluster_capacity=min(cap_limit,
+                                 max(1, cfg.capacity.cluster_capacity)
+                                 * 2))
 
     _OVERFLOW_MSG = (
         "clustering overflowed its exact-capacity ceiling ({n} points "
@@ -150,7 +194,8 @@ class Pipeline:
         cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
                                       device=self.device)
         processed, people, res = self.analyze_device(cloud, cfg)
-        # Clustering overflowed its buffer: grow and re-run.
+        # Clustering overflowed a capacity (a full column or the buffer):
+        # grow and re-run.
         while int(processed.cluster_overflow) > 0:
             grown = self._grown_cluster_cfg(cfg)
             if grown is None:
@@ -165,6 +210,13 @@ class Pipeline:
             need = cfg.capacity.max_people + int(people.overflow)
             cfg = cfg.with_capacity(
                 max_people=1 << max(1, (need - 1).bit_length()))
+            processed, people, res = self.analyze_device(cloud, cfg)
+        # A coarse bucket of the bucketed density count overflowed: double
+        # its cap and re-run (it ends: a cap of max_people holds everyone).
+        while int(res.density.radius_overflow) > 0:
+            cfg = cfg.with_capacity(density_bucket_cap=min(
+                cfg.capacity.max_people,
+                cfg.capacity.density_bucket_cap * 2))
             processed, people, res = self.analyze_device(cloud, cfg)
         density_results = res.density.to_host_dict()
         flow_results = res.flow.to_host_dict()

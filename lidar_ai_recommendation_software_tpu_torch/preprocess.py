@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from lidar_ai_recommendation_software_tpu.config import PipelineConfig
+from lidar_ai_recommendation_software_tpu_torch.config import PipelineConfig
 from lidar_ai_recommendation_software_tpu_torch.ops import clustering
 from lidar_ai_recommendation_software_tpu_torch.types import (
     PointCloud, ProcessedCloud)
@@ -144,7 +144,8 @@ def preprocess(cloud: PointCloud, config: PipelineConfig) -> ProcessedCloud:
 
     labels_c, n_clusters, overflow = clustering.dbscan_labels(
         compact_pts, compact_mask, eps, pc.dbscan_min_samples,
-        max_iters=cap.max_cc_iters,
+        ncx=cap.cluster_cells_x, ncy=cap.cluster_cells_y,
+        column_cap=cap.cluster_column_cap, max_iters=cap.max_cc_iters,
         brute_cap=(clustering.BRUTEFORCE_HARD_CAP
                    if pc.variant == "modular"
                    else clustering.BRUTEFORCE_MAX_POINTS))

@@ -29,6 +29,7 @@ from lidar_ai_recommendation_software_tpu_torch.models import flow as TF
 from lidar_ai_recommendation_software_tpu_torch.ops import clustering as tcl
 from lidar_ai_recommendation_software_tpu_torch.types import (
     People as TPeople, ProcessedCloud as TProcessed)
+from port_helpers import port_cfg
 
 CONFIGS = {"monolith": MONOLITH_CONFIG, "modular": MODULAR_CONFIG}
 FLOW_TOL = 1e-5
@@ -62,12 +63,13 @@ def stages(fixture_points):
         jf = jax.jit(JF.analyze_flow, static_argnames="config")(
             jproc, jppl, jnp.asarray(uni, jnp.float32), cfg)
 
+        tcfg = port_cfg(cfg)
         tproc = _to_torch(jproc, TProcessed)
-        tppl = TD.extract_people(tproc, cfg)
+        tppl = TD.extract_people(tproc, tcfg)
         jppl_t = _to_torch(jppl, TPeople)
-        td = TD.analyze_density(tproc, jppl_t, cfg)
+        td = TD.analyze_density(tproc, jppl_t, tcfg)
         tf = TF.analyze_flow(tproc, jppl_t,
-                             torch.as_tensor(uni, dtype=torch.float32), cfg)
+                             torch.as_tensor(uni, dtype=torch.float32), tcfg)
         out[name] = dict(jppl=jppl, tppl=tppl, jd=jd, td=td, jf=jf, tf=tf)
     return out
 
@@ -162,11 +164,20 @@ def test_radius_count_grid_exact_radius():
 
 
 def test_bucketed_range_raises():
+    """In the bucketed range (1,024 x 1,024 cells x 4,096 people >= 2^32
+    pair tests) radius_count_grid takes the bucketed count: a bucket past
+    its cap raises the overflow count, which makes the pipeline raise the
+    cap; with room, the counts are the all-pairs ones."""
     _, tp = _people(np.zeros((1 << 12, 2), np.float32), 10)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TD.radius_count_grid(tp, torch.zeros(2), torch.tensor(1),
-                             torch.tensor(1), 1024, 1024, 1.0, 2.0,
-                             bucket_cap=32)
+    args = (tp, torch.zeros(2), torch.tensor(1), torch.tensor(1), 1024,
+            1024, 1.0, 2.0)
+    _, ov = TD.radius_count_grid(*args, bucket_cap=4)
+    assert int(ov) == 6
+    counts, ov = TD.radius_count_grid(*args, bucket_cap=32)
+    assert int(ov) == 0
+    want = np.zeros((1024, 1024), np.int32)
+    want[0, 0] = 10  # the one valid cell; centre (0.5, 0.5)
+    np.testing.assert_array_equal(counts.numpy(), want)
 
 
 def test_histogram_grid():

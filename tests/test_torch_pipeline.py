@@ -8,7 +8,6 @@ and speeds within 1e-5 of the JAX package's (sin/cos ulps) and 5e-5 of the
 oracle's (as tests/test_pipeline.py).
 """
 
-import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -20,9 +19,10 @@ import torch
 from lidar_ai_recommendation_software_tpu.config import (
     MODULAR_CONFIG, MONOLITH_CONFIG)
 from lidar_ai_recommendation_software_tpu.pipeline import Pipeline as JaxPipe
-from lidar_ai_recommendation_software_tpu.synthetic import scaled_venue
+from lidar_ai_recommendation_software_tpu_torch.ops import clustering as tcl
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
+from port_helpers import imported_modules, port_cfg
 
 CONFIGS = {"monolith": MONOLITH_CONFIG, "modular": MODULAR_CONFIG}
 FLOW_TOL = 1e-5
@@ -33,7 +33,8 @@ PORT = "lidar_ai_recommendation_software_tpu_torch"
 @pytest.fixture(scope="module")
 def outputs(fixture_points):
     return {name: (JaxPipe(cfg).analyze(fixture_points),
-                   Pipeline(cfg, device="cpu").analyze(fixture_points))
+                   Pipeline(port_cfg(cfg), device="cpu").analyze(
+                       fixture_points))
             for name, cfg in CONFIGS.items()}
 
 
@@ -147,7 +148,7 @@ def _dense_venue():
 
 def test_people_capacity_overflow_flagged():
     pts = _dense_venue()
-    pipe = Pipeline(MONOLITH_CONFIG.with_capacity(max_people=4),
+    pipe = Pipeline(port_cfg(MONOLITH_CONFIG.with_capacity(max_people=4)),
                     device="cpu")
     cfg = pipe.fit_capacity(pts.astype(np.float64))
     assert cfg.capacity.max_people == 32
@@ -158,15 +159,30 @@ def test_people_capacity_overflow_flagged():
 
 
 def test_people_capacity_retry():
-    out = Pipeline(MONOLITH_CONFIG.with_capacity(max_people=4),
+    out = Pipeline(port_cfg(MONOLITH_CONFIG.with_capacity(max_people=4)),
                    device="cpu").analyze(_dense_venue())
     assert out["density"]["total_people"] == 35
     assert int(out["people"].overflow) == 0
 
 
-def test_cloud_above_slice_raises():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        Pipeline(device="cpu").analyze(scaled_venue(50_000))
+def test_cloud_above_slice_raises(monkeypatch):
+    """Past the modular variant's all-pairs ceiling (shrunk here from
+    131,072 to 1,024 points, as tests/test_clustering.py shrinks the JAX
+    package's) the pipeline refuses with an error rather than return a
+    census that dropped points. The monolith variant has no such ceiling
+    below the column table's memory (tests/test_torch_venue.py)."""
+    monkeypatch.setattr(tcl, "BRUTEFORCE_HARD_CAP", 1024)
+    rng = np.random.RandomState(9)
+    centers = rng.uniform(-60, 60, (12, 2))
+    pts = np.zeros((6000, 3))
+    pts[:4800, :2] = centers[rng.randint(0, 12, 4800)] + rng.normal(
+        0, 0.35, (4800, 2))
+    pts[4800:, :2] = rng.uniform(-60, 60, (1200, 2))
+    pts[:, 2] = rng.uniform(0, 0.5, 6000)
+    pipe = Pipeline(port_cfg(MODULAR_CONFIG.with_capacity(
+        cluster_column_cap=512)), device="cpu")
+    with pytest.raises(RuntimeError, match="brute force"):
+        pipe.analyze(pts)
 
 
 def test_device_is_explicit():
@@ -179,28 +195,29 @@ def test_device_is_explicit():
 
 
 def test_port_imports_no_jax():
+    """In a fresh process, the port's pipeline, its CUDA wrapper modules
+    and every module chip_smoke.py imports load without jax, jaxlib,
+    flax or any module of the JAX package."""
+    mods = sorted(n for n in imported_modules(REPO / "chip_smoke.py")
+                  if n.startswith(PORT))
+    mods += [f"{PORT}.pipeline", f"{PORT}.ops.cuda.kernels",
+             f"{PORT}.ops.cuda.columns"]
     code = ("import sys\n"
-            "import lidar_ai_recommendation_software_tpu_torch.pipeline\n"
-            "import lidar_ai_recommendation_software_tpu_torch.ops.cuda"
-            ".kernels\n"
-            "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax')]\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', "
+            "'lidar_ai_recommendation_software_tpu')]\n"
             "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
+                   cwd=REPO)
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tools/profile_torch_port.py"])
 def test_gpu_scripts_import_only_the_port(script):
-    """The scripts that run on the card reach the reference package's
-    host modules only through the port's own re-exports."""
-    tree = ast.parse((REPO / script).read_text())
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            names.add(node.module)
+    """The scripts that run on the card import the port and nothing of
+    the JAX package."""
+    names = imported_modules(REPO / script)
     assert any(n.startswith(PORT) for n in names), names
     bad = [n for n in names if n.split(".")[0] in (
         "jax", "jaxlib", "flax", "lidar_ai_recommendation_software_tpu")]

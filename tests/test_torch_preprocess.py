@@ -23,6 +23,7 @@ from lidar_ai_recommendation_software_tpu_torch import preprocess as tpre
 from lidar_ai_recommendation_software_tpu_torch.ops import clustering as tcl
 from lidar_ai_recommendation_software_tpu_torch.types import (
     PointCloud as TCloud)
+from port_helpers import port_cfg
 
 CONFIGS = {"monolith": MONOLITH_CONFIG, "modular": MODULAR_CONFIG}
 
@@ -52,7 +53,7 @@ def fixture_preprocessed(fixture_points):
         jc = JCloud.from_numpy(fixture_points, cfg.capacity.max_points)
         want = jax.jit(jpre.preprocess, static_argnames="config")(jc, cfg)
         tc = TCloud.from_numpy(fixture_points, cfg.capacity.max_points)
-        out[name] = (want, tpre.preprocess(tc, cfg))
+        out[name] = (want, tpre.preprocess(tc, port_cfg(cfg)))
     return out
 
 
@@ -133,7 +134,11 @@ def test_dbscan_max_iters_cap_matches_jax():
 
 
 def test_buffer_above_bruteforce_cap_raises():
+    """A buffer above the all-pairs cap takes the column-grid backend,
+    which refuses a table past the int32 slot index (1,282 x 1,282
+    columns x 2,048 slots) before allocating it."""
     n = tcl.BRUTEFORCE_MAX_POINTS + 32
     pts = torch.zeros((n, 3))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tcl.dbscan_labels(pts, torch.ones(n, dtype=torch.bool), 0.3, 5)
+    with pytest.raises(ValueError, match="int32 slot index"):
+        tcl.dbscan_labels(pts, torch.ones(n, dtype=torch.bool), 0.3, 5,
+                          ncx=1280, ncy=1280, column_cap=2048)

@@ -4,11 +4,13 @@ NVIDIA GPU.
 
     python3 -m tools.profile_torch_port     (from the repository root)
 
-For the seed-42 fixture (10,000 points) and a 40,960-point sensor frame
-it prints the card's name and power limit, then
+For the seed-42 fixture (10,000 points), a 40,960-point sensor frame and
+venues of 262,144 and 1,000,000 points it prints the card's name and
+power limit, then
 
   - the median wall time of each stage over 5 warm runs, on the host clock
-    with the device synchronised after every stage (clustering is timed
+    with the device synchronised after every stage: the host's capacity
+    fit and upload, then the device program's stages (clustering is timed
     inside preprocess);
   - from ``torch.profiler``, over 3 warm ``analyze`` calls: the device's
     busy time (the sum of its kernels' times) against the wall time, and
@@ -36,7 +38,8 @@ from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.preprocess import preprocess
 from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
 
-STAGES = ("preprocess", "  clustering (in preprocess)", "extract_people",
+STAGES = ("fit_capacity (host)", "upload (from_numpy)", "preprocess",
+          "  clustering (in preprocess)", "extract_people",
           "analyze_density", "analyze_flow", "to_host_dict")
 
 
@@ -47,9 +50,6 @@ def _sync_ms(t0: float) -> float:
 
 def stage_times(pipe: Pipeline, points: np.ndarray, reps: int = 5) -> dict:
     points = np.asarray(points, np.float64)
-    cfg = pipe.fit_capacity(points)
-    cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
-                                  device=pipe.device)
     inner = {}
     plain = clustering.dbscan_labels
 
@@ -63,8 +63,14 @@ def stage_times(pipe: Pipeline, points: np.ndarray, reps: int = 5) -> dict:
     runs = {name: [] for name in STAGES}
     with mock.patch.object(clustering, "dbscan_labels", timed):
         for rep in range(reps + 1):  # the first run warms up
-            row = []
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg = pipe.fit_capacity(points)
+            row = [_sync_ms(t0)]
+            t0 = time.perf_counter()
+            cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
+                                          device=pipe.device)
+            row.append(_sync_ms(t0))
             t0 = time.perf_counter()
             proc = preprocess(cloud, cfg)
             row += [_sync_ms(t0), inner["ms"]]
@@ -117,7 +123,9 @@ def main() -> int:
     print(ident)
     pipe = Pipeline(device="cuda")
     for name, pts in (("10,000-point fixture", sample_venue()),
-                      ("40,960-point frame", scaled_venue(40_960))):
+                      ("40,960-point frame", scaled_venue(40_960)),
+                      ("262,144-point venue", scaled_venue(262_144)),
+                      ("1,000,000-point venue", scaled_venue(1_000_000))):
         print(f"== {name}")
         for stage, ms in stage_times(pipe, pts).items():
             print(f"{stage:30s} {ms:10.3f} ms")
