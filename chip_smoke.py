@@ -14,7 +14,10 @@ Run from the root of a checkout. It
      of the venue-scale clustering at the 1M-point scan's shapes and on
      edge cases (an empty table, a full column and one past its cap,
      neighbours at exactly eps, a chain across the whole grid, a scattered
-     mask);
+     mask), ``fps`` single and batched (bit-equal; masks, exact ties),
+     ``sa_mlp_pool`` at the three shapes of the neural path in float32 and
+     bfloat16 (within the stated tolerances), and ``place_dense`` on the
+     3M-point scan's own stream and on edge cases (bit-equal);
   4. runs ``Pipeline(device="cuda").analyze`` on the seed-42 fixture
      (golden values, the kernel launched, a second run bit-identical, the
      modular variant equal to the CPU);
@@ -25,7 +28,17 @@ Run from the root of a checkout. It
   6. runs a 1,000,000-point venue on the card (the column-grid clustering
      and the bucketed density): the JAX package's recorded values, every
      column kernel launched, a second run bit-identical;
-  7. prints the warm wall time of ``analyze`` at every size.
+  7. serves the shipped checkpoint through ``NeuralPipeline(device="cuda")
+     .analyze`` (the card against the port's CPU run and the JAX package's
+     recorded values, two ``fps_batched`` and two ``sa_mlp_pool`` launches
+     a forward), runs the default-width CrowdNet on a batch of 4 and the
+     100,000-point set-abstraction layer (``fps_single`` -> ``ball_group``
+     -> ``group_features`` -> ``sa_mlp_pool``), each against the port's CPU
+     run;
+  8. runs a 3,000,000-point scan, whose centroids take the ``place_dense``
+     route: the JAX package's recorded values, the centroids of the other
+     route on the same labels, a second run bit-identical;
+  9. prints the warm wall time of ``analyze`` at every size.
 
 Each pipeline run resets the launch counts just before it and reads them
 just after. The line before the last is a JSON record of the kernels; the
@@ -59,11 +72,21 @@ KERNELS = {
                    f"{JAX_PKG}/ops/ccl.py:365"),
     "propagate": (f"{PORT}/csrc/column_neighbours.cu",
                   f"{JAX_PKG}/ops/ccl.py:545"),
+    "place_dense": (f"{PORT}/csrc/place_dense.cu",
+                    f"{JAX_PKG}/ops/pallas/fill.py:398"),
+    "fps_single": (f"{PORT}/csrc/fps.cu",
+                   f"{JAX_PKG}/ops/pallas/kernels.py:351"),
+    "fps_batched": (f"{PORT}/csrc/fps.cu",
+                    f"{JAX_PKG}/ops/pallas/kernels.py:410"),
+    "sa_mlp_pool": (f"{PORT}/csrc/sa_mlp_pool.cu",
+                    f"{JAX_PKG}/ops/pallas/kernels.py:166"),
 }
-COLUMN_KERNELS = tuple(KERNELS)[1:]
-# H100 SXM published peaks: HBM bandwidth, FP32 outside the tensor cores
+COLUMN_KERNELS = tuple(KERNELS)[1:6]
+# H100 SXM published peaks: HBM bandwidth, FP32 outside the tensor cores,
+# bf16 in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # seed-42 fixture, monolith (the CPU oracle's values)
 GOLDEN = {"people": 446, "max_density": 3.5, "avg_density": 0.4958,
@@ -81,9 +104,40 @@ JAX_REFERENCE_1M = {"people": 44449, "n_clusters": 44449,
                     "max_density": 4.25,
                     "avg_density": 0.49387937784194946,
                     "direction": "E", "severities": [8, 8, 7, 7]}
+JAX_REFERENCE_3M = {"people": 133253, "n_clusters": 133253,
+                    "max_density": 4.5, "avg_density": 0.4935303032398224,
+                    "direction": "E", "severities": [9, 9, 8]}
+# The shipped checkpoint through the JAX package's
+# NeuralPipeline(use_pallas=False).analyze on the CPU, a fresh pipeline per
+# cloud (``python3 -m tools.jax_reference_values neural``):
+# sample_venue(n_points=4096, n_people=50, seed=42) and the 10,000-point
+# seed-42 fixture, which is cut to 4,096 points first
+JAX_NEURAL_4096 = {"people": 24, "max_density": 0.298941969871521,
+                   "n_hotspots": 0, "avg_speed": 1.261393666267395,
+                   "direction": "E", "severities": [],
+                   "max_congestion": 0.48032957315444946}
+JAX_NEURAL_FIXTURE = {"people": 26, "max_density": 0.5339675545692444,
+                      "n_hotspots": 1, "avg_speed": 1.255526065826416,
+                      "direction": "E", "severities": [],
+                      "max_congestion": 0.49052268266677856}
 # flow vectors, speeds and centroids: sin/cos and sums differ in the last
 # ulps between the CPU and CUDA
 FLOAT_TOL = 1e-5
+# The centroids of the place_dense route against the indexed route: the
+# first divides float32 sums in float32 (as the JAX package does), the second
+# float64 sums in float64 and rounds once, so they differ by up to 2 float32
+# ulps of the coordinate (6e-5 m at 256 m). Relative to max(1, |coordinate|).
+CENTROID_ROUTE_TOL = 2.4e-7
+# sa_mlp_pool against its plain version (a library matrix product): the
+# inner sums run in another order. With bfloat16 operands a sum that lands
+# an ulp apart can round an operand of the next layer the other way, 2^-8
+# relative. Both as |a - b| <= tol * (1 + |b|).
+SA_F32_TOL = 2e-5
+SA_BF16_TOL = 2e-2
+# CrowdNet's maps, the card against the port's CPU run and the JAX
+# package's CPU values: products, convolutions and per-cell sums round in
+# another order (the JAX package's own tests allow 1e-4 between its routes)
+NEURAL_TOL = 1e-4
 
 
 def max_sweeps() -> int:
@@ -111,10 +165,10 @@ def gpu_identity() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
     """Mean milliseconds per call on the device, after a warm-up."""
     import torch
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -141,11 +195,12 @@ def wall_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> tuple:
     """(least ms, what bounds it): bytes over the HBM rate against
-    operations over the FP32 rate."""
+    operations over their peak rate (FP32 unless said otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -550,17 +605,591 @@ def check_jax_reference(out, ref: dict, what: str) -> None:
             require(got[key] == want, f"{what}: {key} {got[key]} vs {want}")
 
 
-def traced_run(pipe, points, what: str) -> tuple:
-    """One analyze with the launch counts set to 0 just before it and read
+def traced(fn, what: str) -> tuple:
+    """``fn()`` with the launch counts set to 0 just before it and read
     just after."""
     import torch
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
     kernels.reset_launch_counts()
-    out = pipe.analyze(points)
+    out = fn()
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    print(f"launches in the {what} run: {launches}")
+    print(f"launches in the {what} run: "
+          f"{ {k: v for k, v in launches.items() if v} }")
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# place_dense
+# ---------------------------------------------------------------------------
+
+def run_place_checks(dev, points, labels, k: int) -> dict:
+    """``place_dense`` against its plain version, bit for bit: the centroid
+    pack of a scan's own clustering (``points`` (N, 3), ``labels`` (N,) on
+    the card, ``k`` people slots), then the edge cases. Times and bound at
+    the scan's stream; ``library_ms`` is one ``index_copy_`` into a
+    (C + 1, K' + 1) buffer with a spill slot for the invalid rows."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops import clustering
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import place
+
+    seg = torch.where(labels >= 0, labels.to(torch.int64), k).clamp_max(k)
+    ids, valid, chans = clustering._segment_end_rows(points, seg, k)
+    n, kp = ids.shape[0], place.padded_slots(k)
+    rng = np.random.RandomState(5)
+
+    def rows(ids_np, valid_np, nch):
+        return (torch.from_numpy(ids_np.astype(np.int32)).to(dev),
+                torch.from_numpy(valid_np).to(dev),
+                torch.from_numpy(rng.uniform(-1e4, 1e4, (nch, len(ids_np)))
+                                 .astype(np.float32)).to(dev))
+
+    # ids from below 0 to past K': each clipped slot keeps its last row
+    wild = np.sort(rng.randint(-3, 1024 + 40, 5000))
+    clipped = np.clip(wild, 0, 1023)
+    last = np.concatenate([clipped[1:] != clipped[:-1], [True]])
+    cases = [
+        ("the 3M scan's stream", (ids, valid, chans), k),
+        ("no valid row", (ids, torch.zeros_like(valid), chans), k),
+        ("every slot hit", rows(np.arange(2048), np.ones(2048, bool), 7),
+         2048),
+        ("ids below 0 and past K'", rows(wild, last, 3), 1000),
+    ]
+    max_err = 0.0
+    for name, args, kk in cases:
+        got = place.place_dense(*args, kk)
+        want = place.place_dense_reference(*args, kk)
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        max_err = max(max_err, err)
+        print(f"place_dense {name}: {args[0].shape[0]} rows, "
+              f"{int(args[1].sum())} valid, K' {got[1].shape[0]}, "
+              f"{int(got[1].sum())} slots occupied; max_abs_err {err}")
+        for g, w in zip(got, want):
+            require(g.shape == w.shape and torch.equal(
+                g.contiguous().view(torch.int32),
+                w.contiguous().view(torch.int32)),
+                f"place_dense differs from its plain version: {name}")
+        if name == "no valid row":
+            require(not got[0].any() and not got[1].any(),
+                    "no valid row must leave every slot 0")
+        if name == "every slot hit":
+            require(bool(got[1].all()), "every slot must be occupied")
+        if name == "ids below 0 and past K'":
+            require(float(got[1][0]) == 1.0 and float(got[1][-1]) == 1.0,
+                    "clipped ids land in the first and last slot")
+
+    nch, n_valid = chans.shape[0], int(valid.sum())
+    ms = cuda_ms(lambda: place.place_dense(ids, valid, chans, k))
+    plain = cuda_ms(lambda: place.place_dense_reference(ids, valid, chans, k),
+                    iters=5)
+    spill = torch.where(valid, ids.clamp(0, kp - 1), kp).to(torch.int64)
+    src = torch.cat([chans, torch.ones_like(chans[:1])])
+
+    def library():
+        buf = torch.zeros((nch + 1, kp + 1), dtype=torch.float32, device=dev)
+        return buf.index_copy_(1, spill, src)
+
+    lib_ms = cuda_ms(library)
+    # ids and valid read once, the channels at the valid rows, every slot
+    # of the (C + 1, K') result written once; no arithmetic
+    b_ms, b_by = bound(5 * n + 4 * nch * n_valid + 4 * (nch + 1) * kp, 0)
+    print(f"place_dense at the 3M scan's stream ({n} rows, {n_valid} valid, "
+          f"{nch} channels, K' {kp}): kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, index_copy_ {lib_ms:.6f} ms, bound {b_ms:.6f} "
+          f"ms ({b_by})")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# fps and sa_mlp_pool
+# ---------------------------------------------------------------------------
+
+def venue_batch(b: int, n: int):
+    """``b`` sample venues of ``n`` points, the last 0, 1/8, 2/8 ... of
+    each masked: (points (b, n, 3) float32, mask (b, n), venue_min (b, 2),
+    venue_size (b,)) as numpy."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch import sample_venue
+    pts = np.stack([sample_venue(n_points=n, n_people=80, seed=100 + i)
+                    for i in range(b)]).astype(np.float32)
+    mask = np.arange(n)[None, :] < (n - np.arange(b) * (n // 8))[:, None]
+    vmin = np.stack([p[m, :2].min(0) for p, m in zip(pts, mask)])
+    vsize = np.array([np.ptp(p[m, :2], axis=0).max() + 1e-6
+                      for p, m in zip(pts, mask)], np.float32)
+    return pts, mask, vmin.astype(np.float32), vsize
+
+
+def run_fps_checks(dev, layer_points) -> dict:
+    """Both ``fps`` entries against the plain version, indices bit-equal.
+    ``layer_points`` (100,000, 3) float32 on the card: the set-abstraction
+    layer's cloud. Times: ``fps_single`` at that layer (4,096 samples),
+    ``fps_batched`` at the served model's first layer (1 x 4,096 -> 512)."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        pointnet as P)
+
+    def dev_t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    errs = {"fps_single": 0, "fps_batched": 0}
+
+    def same(kernel, name, got, want):
+        torch.cuda.synchronize()
+        err = int_err(got, want)
+        errs[kernel] = max(errs[kernel], err)
+        first = int((got != want).flatten().to(torch.int8).argmax()) \
+            if err else -1
+        print(f"{kernel} {name}: {tuple(got.shape)} indices, max_abs_err "
+              f"{err}" + (f", first difference at {first}" if err else ""))
+        require(got.dtype == torch.int32 and torch.equal(got, want),
+                f"{kernel} differs from its plain version: {name}")
+
+    n_layer = layer_points.shape[0]
+    ones = torch.ones(n_layer, dtype=torch.bool, device=dev)
+    got = P.fps_single(layer_points, ones, 4096)
+    want = P.fps_reference(layer_points, ones, 4096)
+    same("fps_single", f"{n_layer} -> 4096", got, want)
+    require(got.unique().numel() == 4096, "4,096 distinct samples")
+
+    pts, mask, _, _ = venue_batch(4, 8192)
+    bp, bm = dev_t(pts), dev_t(mask)
+    got = P.fps_batched(bp, bm, 1024)
+    same("fps_batched", "4 x 8192 -> 1024", got,
+         P.fps_reference(bp, bm, 1024))
+    rows = torch.stack([P.fps_single(bp[i], bm[i], 1024) for i in range(4)])
+    same("fps_single", "row by row of the batch", rows, got)
+    require(bool(torch.gather(bm, 1, got[:, 1:].to(torch.int64)).all()),
+            "a masked point was chosen")
+
+    few = np.zeros(4096, bool)
+    few[np.random.RandomState(1).choice(4096, 100, replace=False)] = True
+    p1, m1 = dev_t(pts[0, :4096]), dev_t(few)
+    got = P.fps_single(p1, m1, 512, start_index=7)
+    same("fps_single", "100 valid points, 512 samples, start 7", got,
+         P.fps_reference(p1, m1, 512, start_index=7))
+    require(int(got[0]) == 7 and got[1:].unique().numel() == 100,
+            "with fewer valid points than samples the indices repeat")
+    none = torch.zeros_like(m1)
+    same("fps_single", "every point masked", P.fps_single(p1, none, 16),
+         P.fps_reference(p1, none, 16))
+
+    i, j = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    lattice = dev_t(np.stack([i.ravel(), j.ravel(), np.zeros(4096)], 1)
+                    .astype(np.float32))
+    lm = torch.ones(4096, dtype=torch.bool, device=dev)
+    same("fps_single", "64 x 64 lattice (exact ties)",
+         P.fps_single(lattice, lm, 512), P.fps_reference(lattice, lm, 512))
+    both = torch.stack([lattice, lattice.flip(0)])
+    same("fps_batched", "2 lattices (exact ties)",
+         P.fps_batched(both, torch.stack([lm, lm]), 512),
+         P.fps_reference(both, torch.stack([lm, lm]), 512))
+    # 60,000 points: the distance cache leaves shared memory, 20,000: it
+    # stays and the coordinates stream from L2
+    for n in (60_000, 20_000):
+        same("fps_single", f"{n} -> 256", P.fps_single(
+            layer_points[:n].contiguous(), ones[:n], 256),
+            P.fps_reference(layer_points[:n], ones[:n], 256))
+
+    def fps_bound(b, n, m):
+        # points and mask read once, indices written once; per point and
+        # step 3 subtractions, 3 products, 2 sums and a minimum
+        return bound(b * (13 * n + 4 * m), 9.0 * b * n * (m - 1))
+
+    out = {}
+    ms = cuda_ms(lambda: P.fps_single(layer_points, ones, 4096), iters=3,
+                 warm=1)
+    plain = cuda_ms(lambda: P.fps_reference(layer_points, ones, 4096),
+                    iters=1, warm=1)
+    b_ms, b_by = fps_bound(1, n_layer, 4096)
+    print(f"fps_single {n_layer} -> 4096: kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, bound {b_ms:.6f} ms ({b_by}); the 4,095 steps "
+          f"depend on each other, {ms / 4095 * 1e3:.3f} us a step")
+    out["fps_single"] = {"max_abs_err": errs["fps_single"], "ms": ms,
+                         "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": b_by}
+    sp, sm = bp[:1, :4096].contiguous(), bm[:1, :4096].contiguous()
+    ms = cuda_ms(lambda: P.fps_batched(sp, sm, 512))
+    plain = cuda_ms(lambda: P.fps_reference(sp, sm, 512), iters=2, warm=1)
+    b_ms, b_by = fps_bound(1, 4096, 512)
+    print(f"fps_batched 1 x 4096 -> 512: kernel {ms:.6f} ms, plain "
+          f"{plain:.6f} ms, bound {b_ms:.6f} ms ({b_by}); "
+          f"{ms / 511 * 1e3:.3f} us a step")
+    out["fps_batched"] = {"max_abs_err": errs["fps_batched"], "ms": ms,
+                          "plain_ms": plain, "bound_ms": b_ms,
+                          "bound_by": b_by}
+    ms4 = cuda_ms(lambda: P.fps_batched(bp, bm, 1024))
+    print(f"fps_batched 4 x 8192 -> 1024 (the default model's first "
+          f"layer): kernel {ms4:.6f} ms, bound "
+          f"{fps_bound(4, 8192, 1024)[0]:.6f} ms")
+    return out
+
+
+SA_SHAPES = (("served SA1", 512, 3, (32, 32, 64)),
+             ("served SA2", 128, 67, (64, 64, 128)),
+             ("100,000-point layer", 4096, 3, (32, 32, 64)),
+             ("ragged tile", 510, 3, (32, 32, 64)))
+
+
+def sa_weights(rng, cin, hidden, dev):
+    import torch
+    dims = [cin] + list(hidden)
+    return [(torch.from_numpy((rng.randn(a, b) * 0.1).astype("float32"))
+             .to(dev),
+             torch.from_numpy((rng.randn(b) * 0.05).astype("float32"))
+             .to(dev)) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / (1 + |want|)."""
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+def run_sa_checks(dev) -> dict:
+    """``sa_mlp_pool`` against its plain version (library matrix products
+    in full float32) at the shapes of the neural path, K = 32, in float32
+    and with bfloat16 operands; a centroid with no valid neighbour; M not a
+    multiple of the tile. Times and bound at the 100,000-point layer."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        pointnet as P)
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the plain version's products must run in full float32")
+    rng = np.random.RandomState(9)
+    seen = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    abs_err = 0.0
+    timed = None
+    for name, m, cin, hidden in SA_SHAPES:
+        g = torch.from_numpy((rng.randn(m, 32, cin) * 0.3).astype(np.float32)
+                             ).to(dev)
+        v = torch.from_numpy(rng.rand(m, 32) > 0.3).to(dev)
+        v[m // 2] = False
+        w = sa_weights(rng, cin, hidden, dev)
+        for dtype, tol in ((torch.float32, SA_F32_TOL),
+                           (torch.bfloat16, SA_BF16_TOL)):
+            got = P.sa_mlp_pool(g, v, w, compute_dtype=dtype)
+            want = P.sa_mlp_pool_reference(g, v, w, dtype)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            seen[dtype] = max(seen[dtype], err)
+            if dtype == torch.float32:
+                abs_err = max(abs_err, float((got - want).abs().max()))
+            print(f"sa_mlp_pool {name} ({m} x 32 x {cin} -> {hidden[-1]}, "
+                  f"{str(dtype).split('.')[1]}): max relative error {err:.3e} "
+                  f"(tolerance {tol}), max value "
+                  f"{float(want.abs().max()):.4f}")
+            require(got.shape == want.shape and err <= tol,
+                    f"sa_mlp_pool off by {err}: {name}, {dtype}")
+            require(not got[m // 2].any(),
+                    "a centroid with no valid neighbour pools to 0")
+            if dtype == torch.float32:
+                f32 = got
+            else:
+                require(float((got - f32).abs().max()) > 1e-6,
+                        "bfloat16 operands must change the result")
+        if name == "100,000-point layer":
+            timed = (g, v, w, m, cin, hidden)
+    print(f"sa_mlp_pool: worst relative error seen {seen[torch.float32]:.3e} "
+          f"in float32, {seen[torch.bfloat16]:.3e} with bfloat16 operands")
+
+    g, v, w, m, cin, hidden = timed
+    dims = [cin] + list(hidden)
+    ops = 2.0 * m * 32 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    nbytes = (g.numel() * 4 + v.numel() + m * hidden[-1] * 4
+              + sum(wi.numel() * 4 + bi.numel() * 4 for wi, bi in w))
+    record = None
+    for dtype, peak in ((torch.bfloat16, BF16_OPS_PER_S),
+                        (torch.float32, FP32_OPS_PER_S)):
+        ms = cuda_ms(lambda: P.sa_mlp_pool(g, v, w, compute_dtype=dtype))
+        plain = cuda_ms(lambda: P.sa_mlp_pool_reference(g, v, w, dtype),
+                        iters=5)
+        b_ms, b_by = bound(nbytes, ops, peak)
+        print(f"sa_mlp_pool at the 100,000-point layer ({m} x 32 x {cin} -> "
+              f"{hidden[-1]}, {str(dtype).split('.')[1]}): kernel {ms:.6f} "
+              f"ms, plain {plain:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+        record = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain,
+                  "bound_ms": b_ms, "bound_by": b_by}
+    return record  # float32: what the served model runs
+
+
+# ---------------------------------------------------------------------------
+# the neural path
+# ---------------------------------------------------------------------------
+
+def check_groups(card_model, cpu_model, pts, mask, what: str) -> None:
+    """FPS and neighbour indices of both set-abstraction layers, the card
+    against the CPU: exact."""
+    import torch
+    groups = []
+    for model, dev in ((card_model, "cuda"), (cpu_model, "cpu")):
+        p = torch.from_numpy(pts).to(dev)
+        m = torch.from_numpy(mask).to(dev)
+        with torch.no_grad():
+            idx1 = model.sa1.sample(p, m)
+            c1, m1, gi1, gv1, g1 = model.sa1.group(p, None, m, idx1)
+            f1 = model.sa1.pool(g1, gv1, m1)
+            idx2 = model.sa2.sample(c1, m1)
+            _, _, gi2, gv2, _ = model.sa2.group(c1, f1, m1, idx2)
+        groups.append([t.cpu() for t in (idx1, gi1, gv1, idx2, gi2, gv2)])
+    names = ("SA1 FPS indices", "SA1 neighbour indices", "SA1 validity",
+             "SA2 FPS indices", "SA2 neighbour indices", "SA2 validity")
+    for name, a, b in zip(names, *groups):
+        require(torch.equal(a, b), f"{what}: {name} differ, card vs CPU")
+    print(f"{what}: FPS and neighbour indices of both layers equal on the "
+          f"card and the CPU")
+
+
+def neural_arrays(out) -> dict:
+    d, f = out["density"], out["flow"]
+    return {"density_map": d["density_map"],
+            "vectors": f["flow_vectors"]["vectors"],
+            "congestion": out["congestion"]["map"],
+            "people": d["total_people"],
+            "bottlenecks": [(b["x"], b["y"], b["severity"])
+                            for b in f["bottlenecks"]],
+            "hotspot_cells": [(h["x"], h["y"]) for h in d["hotspots"]],
+            "direction": f["dominant_direction"]}
+
+
+def check_neural_same(a: dict, b: dict, tol: float, what: str) -> None:
+    import numpy as np
+    worst = 0.0
+    for key in a:
+        if isinstance(a[key], np.ndarray):
+            err = float(np.abs(a[key] - b[key]).max())
+            worst = max(worst, err)
+            require(err <= tol, f"{what}: {key} off by {err}")
+        else:
+            require(a[key] == b[key], f"{what}: {key} {a[key]} vs {b[key]}")
+    print(f"{what}: people, hotspot cells, bottlenecks and direction equal, "
+          f"maps within {worst:.3e} (tolerance {tol})")
+
+
+def check_neural_reference(out, ref: dict, what: str) -> None:
+    d, f = out["density"], out["flow"]
+    got = {"people": d["total_people"], "max_density": d["max_density"],
+           "n_hotspots": len(d["hotspots"]), "avg_speed": f["avg_speed"],
+           "direction": f["dominant_direction"],
+           "severities": [b["severity"] for b in f["bottlenecks"]],
+           "max_congestion": out["congestion"]["max"]}
+    print(f"{what}: {got}")
+    print(f"JAX package on the CPU (recorded): {ref}")
+    for key, want in ref.items():
+        if isinstance(want, float):
+            require(abs(got[key] - want) <= NEURAL_TOL,
+                    f"{what}: {key} {got[key]} vs {want}")
+        else:
+            require(got[key] == want, f"{what}: {key} {got[key]} vs {want}")
+
+
+def run_neural_serving(ident: str) -> dict:
+    """``NeuralPipeline.analyze`` with the shipped checkpoint at its full
+    configuration (4,096 points, 512 and 128 samples, grid 32) on the card:
+    against the port's CPU run, the JAX package's recorded values, and a
+    second card run. Returns the launch counts of one ``analyze``."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch import (
+        NeuralPipeline, sample_venue)
+
+    card, cpu = NeuralPipeline(device="cuda"), NeuralPipeline(device="cpu")
+    cfg = card.train_config
+    print(f"checkpoint: {cfg.n_points} points, {cfg.sa1_samples} and "
+          f"{cfg.sa2_samples} samples, grid {cfg.grid}, bf16 {cfg.bf16}")
+    cloud = sample_venue(n_points=4096, n_people=50, seed=42)
+    out, launches = traced(lambda: card.analyze(cloud), "neural 4,096-point")
+    require(launches["fps_batched"] == 2 and launches["sa_mlp_pool"] == 2,
+            f"a forward launches fps_batched and sa_mlp_pool twice each, "
+            f"got {launches}")
+    g = cfg.grid
+    require(out["density"]["density_map"].shape == (g, g)
+            and out["flow"]["flow_vectors"]["vectors"].shape == (g * g, 2)
+            and np.isfinite(out["density"]["density_map"]).all()
+            and np.isfinite(out["flow"]["flow_vectors"]["vectors"]).all(),
+            "finite maps of the grid's shape")
+    check_neural_same(neural_arrays(out), neural_arrays(cpu.analyze(cloud)),
+                      NEURAL_TOL, "neural 4,096 points, card vs CPU")
+    check_neural_reference(out, JAX_NEURAL_4096, "card, neural 4,096 points")
+    again = neural_arrays(card.analyze(cloud))
+    check_neural_same(neural_arrays(out), again, 0.0,
+                      "second neural run on the card")
+    pts, mask = card.padded_cloud(cloud[:, :3])
+    check_groups(card.model, cpu.model, pts[None], mask[None],
+                 "neural 4,096 points")
+
+    # above the model's capacity: each fresh pipeline cuts the fixture to
+    # the same 4,096 points (the first draw of its numpy stream)
+    fixture = sample_venue()
+    fresh_card = NeuralPipeline(device="cuda")
+    fout, fl = traced(lambda: fresh_card.analyze(fixture), "neural fixture")
+    require(fl["fps_batched"] == 2 and fl["sa_mlp_pool"] == 2,
+            f"launches of the fixture's forward: {fl}")
+    check_neural_same(neural_arrays(fout), neural_arrays(
+        NeuralPipeline(device="cpu").analyze(fixture)), NEURAL_TOL,
+        "neural fixture (cut to 4,096 points), card vs CPU")
+    check_neural_reference(fout, JAX_NEURAL_FIXTURE, "card, neural fixture")
+    ms = wall_ms(lambda: card.analyze(cloud))
+    print(f"NeuralPipeline.analyze, 4,096 points: median {ms:.3f} ms of 5 "
+          f"(warm, synchronised) on {ident}")
+    return launches
+
+
+def run_default_model(ident: str) -> None:
+    """The default-width CrowdNet (8,192 points, 1,024 and 256 samples,
+    grid 64) on a batch of 4, weights from a numpy seed: the card against
+    the port's CPU run."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+
+    cfg = train.TrainConfig()
+    cpu_model = train.make_model(cfg).eval()
+    cpu_model.load_state_dict(train.seeded_state_dict(cpu_model, 11))
+    card_model = train.make_model(cfg).eval()
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model.to("cuda")
+    batch = venue_batch(cfg.batch_size, cfg.n_points)
+    cpu_in = [torch.from_numpy(x) for x in batch]
+    card_in = [x.to("cuda") for x in cpu_in]
+
+    def forward(model, inputs):
+        with torch.no_grad():
+            return model(*inputs)
+
+    out, launches = traced(lambda: forward(card_model, card_in),
+                           "default-width model")
+    require(launches["fps_batched"] == 2 and launches["sa_mlp_pool"] == 2,
+            f"launches of the default model's forward: {launches}")
+    want = forward(cpu_model, cpu_in)
+    g = cfg.grid
+    require(out["density"].shape == (4, g, g)
+            and out["flow"].shape == (4, g, g, 2)
+            and out["count"].shape == (4,), "output shapes")
+    worst = 0.0
+    for key in out:
+        require(bool(torch.isfinite(out[key]).all()), f"{key} not finite")
+        err = rel_err(out[key].cpu(), want[key])
+        worst = max(worst, err)
+        require(err <= NEURAL_TOL, f"default model: {key} off by {err}")
+    print(f"default-width model, batch 4: outputs finite, card vs CPU "
+          f"within {worst:.3e} relative (tolerance {NEURAL_TOL})")
+    check_groups(card_model, cpu_model, batch[0], batch[1],
+                 "default-width model")
+    again = forward(card_model, card_in)
+    require(all(torch.equal(out[k], again[k]) for k in out),
+            "second forward of the default model differs")
+    ms = wall_ms(lambda: forward(card_model, card_in))
+    print(f"default-width model forward, 4 x 8,192 points: median {ms:.3f} "
+          f"ms of 5 (warm, synchronised) on {ident}")
+
+
+def run_sa_layer(dev, layer_points, ident: str) -> dict:
+    """The single set-abstraction layer at 100,000 points: 4,096 samples,
+    K = 32, r = 0.6, MLP 3-32-32-64, with bfloat16 operands and in float32:
+    ``fps_single`` -> ``ball_group`` -> ``group_features`` ->
+    ``sa_mlp_pool``, the card against the port's CPU run. Returns the
+    launch counts of one bfloat16 layer."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        pointnet as P)
+    from lidar_ai_recommendation_software_tpu_torch.ops.grouping import (
+        ball_group, group_features)
+
+    rng = np.random.RandomState(0)
+    dims = [3, 32, 32, 64]
+    w_np = [((rng.randn(a, b) * 0.1).astype(np.float32),
+             np.zeros(b, np.float32)) for a, b in zip(dims[:-1], dims[1:])]
+
+    def layer(p, dtype):
+        mask = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+        w = [(torch.from_numpy(a).to(p.device),
+              torch.from_numpy(b).to(p.device)) for a, b in w_np]
+        idx = P.fps_single(p, mask, 4096)
+        cents = p[idx.to(torch.int64)]
+        gidx, gvalid = ball_group(cents, mask[idx.to(torch.int64)], p, mask,
+                                  0.6, 32)
+        g = group_features(p, None, cents, gidx, gvalid)
+        return idx, gidx, gvalid, P.sa_mlp_pool(g, gvalid, w,
+                                                compute_dtype=dtype)
+
+    got, launches = traced(lambda: layer(layer_points, torch.bfloat16),
+                           "100,000-point layer")
+    require(launches["fps_single"] == 1 and launches["sa_mlp_pool"] == 1,
+            f"launches of the layer: {launches}")
+    t0 = time.perf_counter()
+    cpu_points = layer_points.cpu()
+    want = layer(cpu_points, torch.bfloat16)
+    print(f"the port's CPU run of the layer took "
+          f"{time.perf_counter() - t0:.3f} s")
+    for name, a, b in zip(("FPS indices", "neighbour indices", "validity"),
+                          got, want):
+        require(torch.equal(a.cpu(), b), f"layer: {name} differ, card vs CPU")
+    err = rel_err(got[3].cpu(), want[3])
+    require(got[3].shape == (4096, 64) and err <= SA_BF16_TOL,
+            f"layer, bfloat16: pooled features off by {err}")
+    f32 = layer(layer_points, torch.float32)[3]
+    f32_err = rel_err(f32.cpu(), layer(cpu_points, torch.float32)[3])
+    require(f32_err <= SA_F32_TOL,
+            f"layer, float32: pooled features off by {f32_err}")
+    print(f"100,000-point layer: indices equal, pooled features within "
+          f"{err:.3e} (bfloat16 operands, tolerance {SA_BF16_TOL}) and "
+          f"{f32_err:.3e} (float32, tolerance {SA_F32_TOL}); "
+          f"{int(got[2].sum())} of {got[2].numel()} neighbour slots valid")
+    for dtype in (torch.bfloat16, torch.float32):
+        ms = wall_ms(lambda: layer(layer_points, dtype), reps=3)
+        print(f"100,000-point layer, {str(dtype).split('.')[1]}: median "
+              f"{ms:.3f} ms of 3 (warm, synchronised) on {ident}")
+    return launches
+
+
+def run_scan_3m(pipe, ident: str) -> tuple:
+    """A 3,000,000-point scan: its clustering buffer exceeds 2,097,152
+    rows, so the centroids pack their segment ends with ``place_dense``.
+    Returns (the scan, the launch counts of one ``analyze``, place_dense's
+    record)."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch import scaled_venue
+    from lidar_ai_recommendation_software_tpu_torch.ops import clustering
+
+    scan = scaled_venue(3_000_000)
+    cap = pipe.fit_capacity(scan).capacity
+    print(f"capacities: {cap.max_points} points, {cap.max_people} people")
+    require(cap.max_points > clustering.SEGSUM_MAX_POINTS,
+            "the scan's buffer must exceed the centroid route's switch")
+    out, launches = traced(lambda: pipe.analyze(scan), "3,000,000-point")
+    for k in (*COLUMN_KERNELS, "place_dense"):
+        require(launches[k] > 0, f"the 3M-point run did not launch {k}")
+    check_jax_reference(out, JAX_REFERENCE_3M, "card, 3,000,000 points")
+    pro, ppl = out["processed"], out["people"]
+    require(int(ppl.mask.sum()) == int(pro.n_clusters),
+            "people must equal clusters")
+    # the route below the switch, on the same labels
+    k = ppl.mask.shape[0]
+    switch = clustering.SEGSUM_MAX_POINTS
+    clustering.SEGSUM_MAX_POINTS = 1 << 30
+    try:
+        cents, valid, _ = clustering.cluster_centroids(pro.points,
+                                                       pro.labels, k)
+    finally:
+        clustering.SEGSUM_MAX_POINTS = switch
+    require(torch.equal(valid, ppl.mask), "occupied slots differ by route")
+    want = cents[:, :2]
+    err = float(((want - ppl.positions).abs()
+                 / want.abs().clamp_min(1.0)).max())
+    require(err <= CENTROID_ROUTE_TOL, f"centroids differ by route: {err}")
+    print(f"centroids of the place_dense route and the indexed route on the "
+          f"same labels: {int(valid.sum())} slots, within {err:.3e} of the "
+          f"coordinate (tolerance {CENTROID_ROUTE_TOL})")
+    again = pipe.analyze(scan)
+    check_same(host_arrays(out), host_arrays(again), True,
+               "second 3M-point run")
+    print("second run bit-identical: yes")
+    record = run_place_checks(pro.points.device, pro.points, pro.labels, k)
+    return scan, launches, record
 
 
 def main() -> int:
@@ -601,7 +1230,7 @@ def main() -> int:
     phase("seed-42 fixture on the card")
     fixture = sample_venue()
     pipe = Pipeline(device="cuda")
-    golden, launches = traced_run(pipe, fixture, "fixture")
+    golden, launches = traced(lambda: pipe.analyze(fixture), "fixture")
     require(launches["radius_count"] > 0,
             "the fixture run did not launch radius_count")
     check_golden(golden)
@@ -619,11 +1248,13 @@ def main() -> int:
     venues = {}
     for n, ref, kernels_used in (
             (40_960, JAX_REFERENCE_40960, ("radius_count",)),
-            (262_144, JAX_REFERENCE_262144, KERNELS)):
+            (262_144, JAX_REFERENCE_262144,
+             ("radius_count", *COLUMN_KERNELS))):
         phase(f"{n:,}-point venue, card vs the port on the CPU")
         t0 = time.perf_counter()
         venues[n] = scaled_venue(n)
-        out, launches = traced_run(pipe, venues[n], f"{n:,}-point")
+        out, launches = traced(lambda: pipe.analyze(venues[n]),
+                               f"{n:,}-point")
         for k in kernels_used:
             require(launches[k] > 0, f"the {n:,}-point run did not launch "
                     f"{k}")
@@ -644,7 +1275,8 @@ def main() -> int:
     phase("1,000,000-point venue on the card")
     t0 = time.perf_counter()
     venues[1_000_000] = big = scaled_venue(1_000_000)
-    out, launches_1m = traced_run(pipe, big, "1,000,000-point")
+    out, launches_1m = traced(lambda: pipe.analyze(big),
+                              "1,000,000-point")
     for k in COLUMN_KERNELS:
         require(launches_1m[k] > 0, f"the 1M-point run did not launch {k}")
     runs = launches_1m["table_fill"]
@@ -657,6 +1289,37 @@ def main() -> int:
     check_same(host_arrays(out), host_arrays(again), True,
                "second 1M-point run")
     print("second run bit-identical: yes")
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("fps kernels against their plain version")
+    t0 = time.perf_counter()
+    import numpy as np
+    layer_points = torch.from_numpy(np.ascontiguousarray(
+        scaled_venue(100_000)[:, :3], dtype=np.float32)).to(dev)
+    fps = run_fps_checks(dev, layer_points)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("sa_mlp_pool kernel against its plain version")
+    sa = run_sa_checks(dev)
+
+    phase("neural serving with the shipped checkpoint")
+    t0 = time.perf_counter()
+    launches_neural = run_neural_serving(ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("default-width CrowdNet, batch 4, card vs the port on the CPU")
+    t0 = time.perf_counter()
+    run_default_model(ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("100,000-point set-abstraction layer")
+    t0 = time.perf_counter()
+    launches_layer = run_sa_layer(dev, layer_points, ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("3,000,000-point scan on the card and place_dense")
+    t0 = time.perf_counter()
+    venues[3_000_000], launches_3m, placed = run_scan_3m(pipe, ident)
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("warm wall time of analyze on the card")
@@ -682,6 +1345,20 @@ def main() -> int:
                             replaces=KERNELS[k][1], launches=launches_1m[k],
                             max_abs_err=cols["errs"][k], **cols["times"][k],
                             library_ms=None))
+    # launches: place_dense in the 3M scan's analyze, fps_single in the
+    # 100,000-point layer, fps_batched and sa_mlp_pool in one served analyze
+    for k, launches, rec in (
+            ("place_dense", launches_3m, placed),
+            ("fps_single", launches_layer, {**fps["fps_single"],
+                                            "library_ms": None}),
+            ("fps_batched", launches_neural, {**fps["fps_batched"],
+                                              "library_ms": None}),
+            ("sa_mlp_pool", launches_neural, {**sa, "library_ms": None})):
+        require(launches[k] > 0, f"{k} was not launched on its path")
+        records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
+                            replaces=KERNELS[k][1], launches=launches[k],
+                            **rec))
+    require([r["name"] for r in records] == list(KERNELS), "kernel records")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

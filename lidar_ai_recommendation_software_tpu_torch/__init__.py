@@ -17,12 +17,22 @@ with its bottlenecks. The monolith variant has no size limit of its own
 below the column table's device memory (16 bytes per slot of a
 (ncx + 2) x (ncy + 2) x column-cap table).
 
-State shared with the JAX package: the pipeline has no learned
+On the centroid route of buffers above 2,097,152 rows the segment ends
+are packed by the ``place_dense`` CUDA kernel.
+
+It also covers neural serving, ``NeuralPipeline.analyze``: CrowdNet
+(``models/crowdnet.py``), whose set-abstraction layers run farthest-point
+sampling and the fused shared MLP with its max-pool as CUDA kernels
+(``fps``, ``sa_mlp_pool``), with dense ball grouping in PyTorch between
+them.
+
+State shared with the JAX package: the analytic pipeline has no learned
 parameters. What it shares is the frozen ``PipelineConfig``, copied field
 for field, and the bottleneck uniforms, drawn with the same
-``np.random.RandomState(seed)``. Mapping the CrowdNet parameter tree
-(``assets/crowdnet_tiny.npz``) onto torch modules comes with the neural
-path.
+``np.random.RandomState(seed)``. The neural path shares the serving
+checkpoint (``assets/crowdnet_tiny.npz``, a byte-identical copy), whose
+flax parameter tree ``models/train.py::params_from_flax`` maps onto the
+torch modules.
 """
 
 __version__ = "0.1.0"
@@ -31,6 +41,9 @@ from lidar_ai_recommendation_software_tpu_torch.config import (  # noqa: F401
     MODULAR_CONFIG,
     MONOLITH_CONFIG,
     PipelineConfig,
+)
+from lidar_ai_recommendation_software_tpu_torch.neural import (  # noqa: F401
+    NeuralPipeline,
 )
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (  # noqa: F401
     sample_venue,

@@ -28,6 +28,8 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.columns import (
     INT_MAX)
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
     PAIRS_PER_CHUNK)
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda.place import (
+    place_dense)
 
 # Largest clustering buffer the all-pairs backend takes for the monolith
 # variant; above it the column-grid connected components take over, as in
@@ -38,6 +40,10 @@ BRUTEFORCE_MAX_POINTS = 32768
 # standardised space admits no spatial decomposition (the same ceiling as
 # the JAX package's).
 BRUTEFORCE_HARD_CAP = 131072
+
+# Above this many rows (the clustering's padded point buffer) the centroids
+# pack their segment ends with ``place_dense``, the JAX package's switch.
+SEGSUM_MAX_POINTS = 2_097_152
 
 
 def _eps_edges(points: torch.Tensor, mask: torch.Tensor, eps: float
@@ -142,6 +148,58 @@ def dbscan_labels(points: torch.Tensor, mask: torch.Tensor, eps: float,
                          column_cap=column_cap, max_iters=max_iters)
 
 
+def _sorted_prefix(points: torch.Tensor, seg: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows sorted stably by segment id: (seg_s (N,), inclusive float64
+    prefix sums of the sorted coordinates, (D, N))."""
+    order = torch.sort(seg, stable=True).indices
+    # (D, N) layout: PyTorch's scan along dim 0 of an (N, D) tensor runs
+    # only D columns in parallel on CUDA (5 ms at N = 40,960).
+    cols = points[order].T.to(torch.float64).contiguous()
+    return seg[order], torch.cumsum(cols, 1)
+
+
+def _segment_end_rows(points: torch.Tensor, seg: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """What ``_centroids_sorted`` hands to ``place_dense``: (sorted segment
+    ids (N,) int32, the mask of each segment's end row among segments
+    < k, channels (2 D + 1, N) float32: the inclusive float64 prefix of the
+    sorted coordinates split into hi then lo float32 parts, and the row
+    count up to each row)."""
+    n = points.shape[0]
+    seg_s, prefix = _sorted_prefix(points, seg)
+    hi = prefix.to(torch.float32)
+    lo = (prefix - hi.to(torch.float64)).to(torch.float32)
+    cnt = torch.arange(1, n + 1, dtype=torch.float32, device=points.device)
+    is_end = torch.ones(n, dtype=torch.bool, device=points.device)
+    is_end[:-1] = seg_s[1:] != seg_s[:-1]
+    return (seg_s.to(torch.int32), is_end & (seg_s < k),
+            torch.cat([hi, lo, cnt[None]]))
+
+
+def _centroids_sorted(points: torch.Tensor, seg: torch.Tensor, k: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Segment sums and counts by sort, prefix and a dense pack: (sums
+    (K, D) float32, counts (K,) float32); slots past the last cluster are
+    exactly 0.
+
+    The route of the JAX package's ``_centroids_sorted``. Cluster ids are
+    dense, so after the sort segment j's end row holds the inclusive prefix
+    up to and including it, and a segment's sum is the difference of two
+    adjacent dense slots once the end rows are packed by ``place_dense``.
+    The prefix is summed in float64 and split into a (hi, lo) float32 pair,
+    where the JAX package scans such pairs; the count channel rides float32,
+    exact below 2^24 rows."""
+    d = points.shape[1]
+    placed, occ = place_dense(*_segment_end_rows(points, seg, k), k)
+    real = occ[:k] > 0.5
+    placed = placed[:, :k]
+    diff = placed - torch.nn.functional.pad(placed[:, :-1], (1, 0))
+    sums = torch.where(real, diff[:d] + diff[d:2 * d], 0.0)
+    cnts = torch.where(real, diff[2 * d], 0.0)
+    return sums.T, cnts
+
+
 def cluster_centroids(points: torch.Tensor, labels: torch.Tensor,
                       max_clusters: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -151,20 +209,26 @@ def cluster_centroids(points: torch.Tensor, labels: torch.Tensor,
 
     Deterministic on every device: a stable sort by cluster id, a float64
     prefix sum, and differences at the segment ends; no float atomics.
-    Counts are exact integers."""
+    Counts are exact integers. Buffers of more than ``SEGSUM_MAX_POINTS``
+    rows (and fewer than 2^24) pack the segment ends with ``place_dense``
+    (``_centroids_sorted``), as the JAX package does; the others read them
+    by index."""
     k = max_clusters
+    n = points.shape[0]
     seg = torch.where(labels >= 0, labels.to(torch.int64), k).clamp_max(k)
-    order = torch.sort(seg, stable=True).indices
-    cnts = torch.bincount(seg, minlength=k + 1)[:k]
-    # (D, N) layout: PyTorch's scan along dim 0 of an (N, D) tensor runs
-    # only D columns in parallel on CUDA (5 ms at N = 40,960).
-    cols = points[order].T.to(torch.float64).contiguous()
-    prefix = torch.nn.functional.pad(torch.cumsum(cols, 1), (1, 0))
-    end = torch.cumsum(cnts, 0)
-    sums = (prefix[:, end] - prefix[:, end - cnts]).T
-    valid = cnts > 0
-    cents = (sums / cnts.clamp_min(1)[:, None].to(torch.float64)).to(
-        points.dtype)
+    if SEGSUM_MAX_POINTS < n < (1 << 24):
+        sums, cnts = _centroids_sorted(points, seg, k)
+        valid = cnts > 0
+        cents = sums / cnts.clamp_min(1.0)[:, None]
+    else:
+        _, prefix = _sorted_prefix(points, seg)
+        prefix = torch.nn.functional.pad(prefix, (1, 0))
+        cnts = torch.bincount(seg, minlength=k + 1)[:k]
+        end = torch.cumsum(cnts, 0)
+        sums = (prefix[:, end] - prefix[:, end - cnts]).T
+        valid = cnts > 0
+        cents = (sums / cnts.clamp_min(1)[:, None].to(torch.float64)).to(
+            points.dtype)
     # ids are dense 0..C-1, so the clusters past K number max_id + 1 - K
     overflow = (labels.max().clamp_min(-1) + 1 - k).clamp_min(0)
     return cents, valid, overflow.to(torch.int32)

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
-    LAUNCHES, PAIRS_PER_CHUNK, _check, load_library)
+    LAUNCHES, PAIRS_PER_CHUNK, _check, _cuda_device, _raise_on, _stream,
+    load_library)
 
 EMPTY_COORD = 1.0e18   # (1e18)^2 is finite in float32 and always > r^2
 INT_MAX = 2 ** 31 - 1
@@ -55,21 +56,6 @@ def eps_sq(eps: float) -> np.float32:
     of ``kernels._radius_sq``: at eps = 0.35 the two differ by an ulp."""
     e = np.float32(eps)
     return e * e
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} has no kernel for {t.device}")
-    return t.device
 
 
 def slot_stream_pos(table: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), their loader, and the
 ``radius_count`` kernel's wrapper and plain PyTorch version.
 
-The counterpart of the JAX package's ``ops/pallas/kernels.py``; the
-column-table kernels of the venue-scale clustering are wrapped in
-``columns.py`` beside this module. Each kernel has a wrapper that
+The counterpart of the JAX package's ``ops/pallas/kernels.py``. Beside this
+module, ``columns.py`` wraps the column-table kernels of the venue-scale
+clustering, ``place.py`` the ``place_dense`` scatter of the centroid pack,
+and ``pointnet.py`` farthest-point sampling and the fused set-abstraction
+MLP of the neural path. Each kernel has a wrapper that
 dispatches on the device of its tensors: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, and a kernel that fails to
 build or launch raises. The plain versions are what the CPU tests run and
@@ -39,7 +41,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"radius_count": 0, "table_fill": 0, "table_gather": 0,
-            "column_counts": 0, "border_min": 0, "propagate": 0}
+            "column_counts": 0, "border_min": 0, "propagate": 0,
+            "place_dense": 0, "fps_single": 0, "fps_batched": 0,
+            "sa_mlp_pool": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each launch function in csrc/ (pointers and the stream
@@ -51,6 +55,10 @@ _SIGNATURES = {
     "column_counts_launch": [_P, _P, _I, _I, _I, _F, _P, _P],
     "border_min_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "propagate_launch": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "place_dense_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
+    "fps_scratch_floats": [_I],
+    "fps_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "sa_mlp_pool_launch": [_P] * 8 + [_I] * 7 + [_P, _P],
 }
 
 # Pair tests per chunk of the plain all-pairs passes, here and in
@@ -149,6 +157,21 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _cuda_device(t: torch.Tensor, name: str) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} has no kernel for {t.device}")
+    return t.device
+
+
 def _radius_sq(radius: float) -> np.float32:
     """r^2 squared in float64 and rounded once to float32, as the JAX
     package's ``radius_count`` kernel rounds it. (Its jnp density path
@@ -191,9 +214,7 @@ def radius_count(centers: torch.Tensor, people: torch.Tensor,
     kernel in ``csrc/radius_count.cu``."""
     if centers.device.type == "cpu":
         return radius_count_reference(centers, people, pmask, radius)
-    if centers.device.type != "cuda":
-        raise ValueError(f"radius_count has no kernel for {centers.device}")
-    dev = centers.device
+    dev = _cuda_device(centers, "radius_count")
     c, k = centers.shape[0], people.shape[0]
     _check("centers", centers, torch.float32, (c, 2), dev)
     _check("people", people, torch.float32, (k, 2), dev)
@@ -207,9 +228,7 @@ def radius_count(centers: torch.Tensor, people: torch.Tensor,
         out = torch.empty(c, dtype=torch.int32, device=dev)
         err = fn(centers.data_ptr(), people.data_ptr(), pmask.data_ptr(),
                  nv.data_ptr(), float(_radius_sq(radius)), c, k,
-                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                 out.data_ptr(), _stream(dev))
         LAUNCHES["radius_count"] += 1
-    if err != 0:
-        raise RuntimeError(f"radius_count kernel launch failed: CUDA error "
-                           f"{err}")
+    _raise_on(err, "radius_count")
     return out

@@ -25,7 +25,11 @@ from port_helpers import imported_modules, port_cfg
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = "lidar_ai_recommendation_software_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "lidar_ai_recommendation_software_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "lidar_ai_recommendation_software_tpu")
+NEURAL_MODULES = ("neural.py", "models/crowdnet.py", "models/train.py",
+                  "ops/sampling.py", "ops/grouping.py", "ops/cuda/place.py",
+                  "ops/cuda/pointnet.py")
 
 
 @pytest.mark.parametrize("name", ["MONOLITH_CONFIG", "MODULAR_CONFIG"])
@@ -89,9 +93,12 @@ def test_recommendations_copy_equals_jax(request, source):
 
 def test_port_package_imports_nothing_of_jax():
     """Every module of the port, read with ``ast``: no import of the JAX
-    package, jax, jaxlib or flax, at any depth (function bodies too)."""
+    package, jax, jaxlib, flax, optax or orbax, at any depth (function
+    bodies too); the modules of the neural path are among them."""
     files = sorted((REPO / PORT).rglob("*.py"))
     assert len(files) > 10
+    for rel in NEURAL_MODULES:
+        assert REPO / PORT / rel in files, rel
     for path in files:
         bad = [n for n in imported_modules(path)
                if n.split(".")[0] in FORBIDDEN]

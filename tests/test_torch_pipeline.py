@@ -200,8 +200,13 @@ def test_port_imports_no_jax():
     flax or any module of the JAX package."""
     mods = sorted(n for n in imported_modules(REPO / "chip_smoke.py")
                   if n.startswith(PORT))
-    mods += [f"{PORT}.pipeline", f"{PORT}.ops.cuda.kernels",
-             f"{PORT}.ops.cuda.columns"]
+    mods += sorted(n for n in imported_modules(
+        REPO / "tools" / "profile_torch_port.py") if n.startswith(PORT))
+    mods += [f"{PORT}.pipeline", f"{PORT}.neural", f"{PORT}.models.crowdnet",
+             f"{PORT}.models.train", f"{PORT}.ops.sampling",
+             f"{PORT}.ops.grouping", f"{PORT}.ops.cuda.kernels",
+             f"{PORT}.ops.cuda.columns", f"{PORT}.ops.cuda.place",
+             f"{PORT}.ops.cuda.pointnet"]
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -220,6 +225,12 @@ def test_gpu_scripts_import_only_the_port(script):
     names = imported_modules(REPO / script)
     assert any(n.startswith(PORT) for n in names), names
     bad = [n for n in names if n.split(".")[0] in (
-        "jax", "jaxlib", "flax", "lidar_ai_recommendation_software_tpu")]
+        "jax", "jaxlib", "flax", "optax", "orbax",
+        "lidar_ai_recommendation_software_tpu")]
     assert not bad, bad
+    # both drive the neural path and the centroid route, not only Pipeline
+    text = (REPO / script).read_text()
+    for needed in ("NeuralPipeline", "sa_mlp_pool", "fps_single",
+                   "3_000_000"):
+        assert needed in text, (script, needed)
 
