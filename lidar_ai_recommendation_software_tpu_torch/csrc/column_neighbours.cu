@@ -1,6 +1,7 @@
 // The eps-neighbourhood kernels of the venue-scale clustering on the column
 // table (column_table.cu): the core counts, the border minimum and the label
-// propagation, one templated kernel in three modes.
+// propagation, one templated kernel in three modes, and two small kernels of
+// the propagation.
 //
 // Replaces three TPU kernels of lidar_ai_recommendation_software_tpu/ops/
 // ccl.py, which share one inner loop (_neighbor_min_and_count):
@@ -21,18 +22,25 @@
 //
 // The TPU kernels walk the table row by row, and the propagation is
 // Gauss-Seidel because a Pallas grid runs in order on one core. CUDA blocks
-// run in no order, so the propagation here is a sweep of in-place updates:
-// each core point takes the minimum of its own label and its core
-// eps-neighbours' labels, then jumps twice through the point -> stream
-// position map (label L -> the label of point L). Every label is at all
-// times the index of a core point of the same component and never grows,
-// and a label is written only by its own thread, so the sweeps reach the
-// one fixpoint (each core point carries the smallest point index of its
-// component) whatever order the blocks run in. Each sweep counts the labels
-// it changed (__syncthreads_count, then one integer atomicAdd per block);
-// the caller sweeps until a sweep changes nothing, which no concurrent
-// write can fake: a sweep that writes nothing read a state no thread was
-// changing.
+// run in no order, so the propagation here is a union-find over the
+// core-core eps edges, in three launches and no host read:
+//   1. init: parent[k] = k (a separate (N,) buffer: labels, which say which
+//      points are core and carry each core point's key, its point index,
+//      are only read until the last launch);
+//   2. hook: each core point k scans its 3x3 columns like the count does
+//      and unites itself with every core eps-neighbour q earlier in the
+//      stream (q < k: each edge once). A union finds both roots (with path
+//      halving) and hooks the root of the larger key under the other with
+//      atomicCAS, retrying from what the CAS found when another thread
+//      moved the root first. A parent's key is never larger than its
+//      child's, so path-halving writes, which only shorten a path to an
+//      ancestor, are benign, and the root of every component is its core
+//      point of the smallest point index;
+//   3. compress: labels[k] = labels[root of k] for core points that are not
+//      roots (roots keep their own label; non-core points stay INT_MAX).
+// The atomics make the trees' shapes vary from run to run; the labels (each
+// component's smallest point index) do not, and there is no sweep count:
+// one pass reaches the fixpoint.
 //
 // Numerics, as the JAX package rounds them (ccl.py:295-299): per axis
 // dx = neighbour - centre, d2 = (dx*dx + dy*dy) + dz*dz, each product and
@@ -53,7 +61,8 @@
 // What bounds them on the H100: the latency of dependent, data-dependent
 // loads (a column's length is known only by reading it), not bandwidth or
 // arithmetic: per point a few dozen 16-byte reads, mostly cached, and 9
-// float operations per pair test. The least time for the same work, the
+// float operations per pair test. The hook adds a chain of parent reads
+// and a CAS per edge to an earlier core point. The least time for the same work, the
 // bytes the run needs (each occupied slot and each column's end marker read
 // once, the (N,) arrays read or written once) over 3.35 TB/s against the
 // pair tests over the FP32 rate, is computed from each run's table by
@@ -67,25 +76,56 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int32_t kIntMax = 2147483647;
 
-enum Mode { kCount = 0, kMin = 1, kPropagate = 2 };
+enum Mode { kCount = 0, kMin = 1, kHook = 2 };
 
-// labels and out alias in kPropagate (the sweep updates in place), so
-// neither is __restrict__.
+// the root of x's tree, halving the path on the way. Parents are read
+// through L2 (ld.global.cg): other blocks write them, and L1 is not
+// coherent across SMs.
+__device__ __forceinline__ int32_t find_root(int32_t* parent, int32_t x) {
+  int32_t p = __ldcg(parent + x);
+  while (p != x) {
+    const int32_t gp = __ldcg(parent + p);
+    if (gp != p) parent[x] = gp;  // benign: gp is an ancestor of x too
+    x = p;
+    p = gp;
+  }
+  return x;
+}
+
+// unite the trees of core points a and b: the root of the larger key goes
+// under the other root
+__device__ __forceinline__ void unite(int32_t* parent,
+                                      const int32_t* __restrict__ key,
+                                      int32_t a, int32_t b) {
+  int32_t ra = find_root(parent, a);
+  int32_t rb = find_root(parent, b);
+  while (ra != rb) {
+    if (key[ra] < key[rb]) {
+      const int32_t t = ra;
+      ra = rb;
+      rb = t;
+    }
+    // ra has the larger key: hook it under rb, if it is still a root
+    const int32_t seen = atomicCAS(parent + ra, ra, rb);
+    if (seen == ra) return;
+    ra = find_root(parent, seen);
+    rb = find_root(parent, rb);
+  }
+}
+
+// labels is read-only in every mode; out is the count, the minimum, or, in
+// kHook, the parent buffer.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 neighbour_kernel(const float4* __restrict__ table,         // (S,)
                  const int32_t* __restrict__ stream_slot,  // (N,)
-                 const int32_t* __restrict__ point_stream, // (N,) kPropagate
                  int32_t n, int32_t py, int32_t cap, float r2,
-                 const int32_t* labels,                    // (N,) kMin, kProp
-                 int32_t* out,                             // (N,)
-                 int32_t* __restrict__ changed) {          // () kPropagate
+                 const int32_t* __restrict__ labels,       // (N,) kMin, kHook
+                 int32_t* out) {                           // (N,)
   const int k = blockIdx.x * kThreads + threadIdx.x;
   const int32_t pos = k < n ? stream_slot[k] : -1;
-  bool did_change = false;
-  const int32_t own = (MODE == kPropagate && pos >= 0) ? labels[k] : kIntMax;
   int32_t acc = MODE == kCount ? 0 : kIntMax;
-  if (pos >= 0 && (MODE != kPropagate || own != kIntMax)) {
+  if (pos >= 0 && (MODE != kHook || labels[k] != kIntMax)) {
     const float4 c = table[pos];
     const int32_t col = pos / cap;
     for (int dx = -1; dx <= 1; ++dx) {
@@ -104,46 +144,47 @@ neighbour_kernel(const float4* __restrict__ table,         // (S,)
           if (d2 <= r2) {
             if (MODE == kCount) {
               ++acc;
-            } else {
+            } else if (MODE == kMin) {
               acc = min(acc, labels[kq]);
+            } else if (kq < k && labels[kq] != kIntMax) {
+              unite(out, labels, k, kq);
             }
           }
         }
       }
     }
-    if (MODE == kPropagate) {
-      // acc <= own (self is its own neighbour) and is a core point's index
-      for (int hop = 0; hop < 2; ++hop) {
-        const int32_t s = point_stream[acc];
-        if (s < 0) break;
-        acc = min(acc, labels[s]);
-      }
-      if (acc < own) {
-        out[k] = acc;
-        did_change = true;
-      }
-    }
   }
-  if (MODE != kPropagate && k < n) out[k] = acc;
-  if (MODE == kPropagate) {
-    const int n_changed = __syncthreads_count(did_change);
-    if (threadIdx.x == 0 && n_changed > 0) atomicAdd(changed, n_changed);
-  }
+  if (MODE != kHook && k < n) out[k] = acc;
 }
 
+__global__ void __launch_bounds__(kThreads)
+init_parent_kernel(int32_t n, int32_t* __restrict__ parent) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k < n) parent[k] = k;
+}
+
+// after the hook no parent changes, so plain loads walk the trees
+__global__ void __launch_bounds__(kThreads)
+compress_kernel(int32_t n, const int32_t* __restrict__ parent,
+                int32_t* labels) {
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n || labels[k] == kIntMax) return;
+  int32_t r = k;
+  while (parent[r] != r) r = parent[r];
+  if (r != k) labels[k] = labels[r];  // a root's label is never written
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
 template <int MODE>
-int launch(const void* table, const void* stream_slot,
-           const void* point_stream, int n, int py, int cap, float r2,
-           const void* labels, void* out, void* changed, void* stream) {
+int launch(const void* table, const void* stream_slot, int n, int py,
+           int cap, float r2, const void* labels, void* out, void* stream) {
   if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    neighbour_kernel<MODE><<<blocks, kThreads, 0,
+    neighbour_kernel<MODE><<<blocks_for(n), kThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(table),
-        static_cast<const int32_t*>(stream_slot),
-        static_cast<const int32_t*>(point_stream), n, py, cap, r2,
-        static_cast<const int32_t*>(labels), static_cast<int32_t*>(out),
-        static_cast<int32_t*>(changed));
+        static_cast<const int32_t*>(stream_slot), n, py, cap, r2,
+        static_cast<const int32_t*>(labels), static_cast<int32_t*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -153,21 +194,32 @@ int launch(const void* table, const void* stream_slot,
 extern "C" int column_counts_launch(const void* table, const void* stream_slot,
                                     int n, int py, int cap, float r2,
                                     void* out, void* stream) {
-  return launch<kCount>(table, stream_slot, nullptr, n, py, cap, r2, nullptr,
-                        out, nullptr, stream);
+  return launch<kCount>(table, stream_slot, n, py, cap, r2, nullptr, out,
+                        stream);
 }
 
 extern "C" int border_min_launch(const void* table, const void* stream_slot,
                                  int n, int py, int cap, float r2,
                                  const void* labels, void* out, void* stream) {
-  return launch<kMin>(table, stream_slot, nullptr, n, py, cap, r2, labels,
-                      out, nullptr, stream);
+  return launch<kMin>(table, stream_slot, n, py, cap, r2, labels, out,
+                      stream);
 }
 
+// three launches on the stream, none when n is 0: init, hook, compress;
+// labels in place, parent (N,) int32 scratch
 extern "C" int propagate_launch(const void* table, const void* stream_slot,
-                                const void* point_stream, int n, int py,
-                                int cap, float r2, void* labels,
-                                void* changed, void* stream) {
-  return launch<kPropagate>(table, stream_slot, point_stream, n, py, cap, r2,
-                            labels, labels, changed, stream);
+                                int n, int py, int cap, float r2,
+                                void* labels, void* parent, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* par = static_cast<int32_t*>(parent);
+  init_parent_kernel<<<blocks_for(n), kThreads, 0, s>>>(n, par);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int hooked = launch<kHook>(table, stream_slot, n, py, cap, r2, labels,
+                                   parent, stream);
+  if (hooked != 0) return hooked;
+  compress_kernel<<<blocks_for(n), kThreads, 0, s>>>(
+      n, par, static_cast<int32_t*>(labels));
+  return static_cast<int>(cudaGetLastError());
 }

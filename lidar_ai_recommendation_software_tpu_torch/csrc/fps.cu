@@ -1,4 +1,4 @@
-// fps: farthest-point sampling of B clouds, one thread block per cloud.
+// fps: farthest-point sampling of B clouds.
 //
 // Replaces the two TPU kernels of lidar_ai_recommendation_software_tpu/ops/
 // pallas/kernels.py: _fps_single (_fps_kernel) is the case B = 1 and
@@ -14,32 +14,59 @@
 //     never chosen while a valid point is left; with fewer valid points than
 //     samples the indices repeat;
 //   - ties go to the lowest index: the reductions compare (value, index)
-//     pairs.
+//     pairs, an associative and commutative order, so how the points are
+//     split between threads and blocks does not change the result.
 // The TPU's (rows, 128) coordinate planes and its masked-reduce read of the
 // last point are workarounds of that machine; here the point is indexed.
 //
-// Design for Hopper: the n_samples steps depend on each other, so one cloud
-// cannot use more than the threads that share one barrier cheaply: a block of
-// 1,024 threads. The distance cache lives in shared memory for the whole run
-// when it fits (n <= 51,200), and so do the coordinates and the mask when
-// they fit beside it (n <= 12,047: the serving and training shapes), in which
-// case a step touches no device memory at all. Above that the coordinates,
-// and above 51,200 points the cache too, are re-read through L2 every step
-// (the cache then lives in a scratch buffer the wrapper allocates). A step is
-// one pass over the points, a warp-shuffle argmax, one __syncthreads, and a
-// second shuffle argmax over the 32 warp results that every warp repeats, so
-// all threads know the chosen index without a second barrier. The indices
-// leave the chip once.
+// The n_samples steps depend on each other, so a step costs at least one
+// barrier among the threads that share the cloud. Two bodies, and a launch
+// plan (ops/cuda/pointnet.py::fps_plan) that picks one by the cloud's size:
 //
-// What bounds it on the H100: the chain of n_samples dependent steps, each a
-// block-wide barrier and, for large clouds, n * 17 bytes through one SM's L2
-// port. The bytes the function must move (n * 13 in, n_samples * 4 out) and
-// its 9 operations per point and step are far below any reachable time; a
-// thread-block cluster with the cache in distributed shared memory is the
-// redesign for the 100,000-point layer.
+//   - fps_kernel, one block of 1,024 threads a cloud. Up to 12,047 points
+//     (the serving and training shapes) the cloud, its distance cache and
+//     its mask live in shared memory (17 bytes a point) and a step touches
+//     no device memory: a pass over the points, a warp-shuffle argmax, one
+//     __syncthreads, and a second shuffle argmax over the 32 warp results
+//     that every warp repeats, so all threads know the chosen index without
+//     a second barrier. Clouds larger than a cluster holds take the same
+//     body with the coordinates read through L2 every step and the cache in
+//     a device scratch buffer (n * 17 bytes a step through one SM).
+//   - fps_cluster_kernel, a thread-block cluster of CL blocks of 1,024
+//     threads a cloud (CL <= 8, the portable size): each block keeps a contiguous slice of the cloud in its own
+//     shared memory for the whole run (x, y, z planes, the cache, the mask),
+//     so a 100,000-point cloud (CL = 8, 12,500 points a block) is read from
+//     device memory once. A step: each thread updates its points' cache and
+//     takes its best (value, index); a warp-shuffle argmax; lane 0 of each
+//     warp writes the warp's best to shared memory; one __syncthreads; warp
+//     0 reduces the 32 to the block's best and its lanes store it, with the
+//     winner's x, y, z, into slot [rank] of every block's candidate buffer
+//     (distributed shared memory, remote stores); one cluster barrier; then
+//     every warp reads the CL candidates from its own shared memory and
+//     reduces them, so every thread knows the chosen point and its
+//     coordinates with no read of device memory and no second barrier.
+//     The candidate buffers alternate by step parity, which makes one
+//     cluster barrier a step enough: a block writes buffer s & 1 again only
+//     after the barrier of step s + 1, which every block reaches after it
+//     has read its step-s candidates.
+//     Why push and not pull: if every warp read all CL x 32 warp results
+//     from the other blocks, a step would move 64 KB of remote reads into
+//     each block (8 B x 32 lanes x CL x 32 warps), hundreds of ns through
+//     the SM-to-SM network; pushing one candidate per block moves CL x 20
+//     bytes out of each block and costs one block barrier instead.
+//
+// What bounds it on the H100: the chain of n_samples dependent steps. The
+// bytes the function must move (n * 13 in, n_samples * 4 out) and its 9
+// operations per point and step are far below any reachable time; a step
+// costs the pass over a block's points from shared memory (about 12 a
+// thread at 100,000 points), three shuffle reductions, a block barrier and
+// a cluster barrier.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -156,34 +183,228 @@ fps_kernel(const float* __restrict__ points,   // (B, n, 3)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the cluster body
+// ---------------------------------------------------------------------------
+
+// a block's best (value, index) and the point's coordinates, as pushed into
+// every block of the cluster
+struct Cand {
+  float v;
+  int i;
+  float x, y, z;
+};
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kSmemPerBlock = 232448;  // the most a block of sm_90 may use
+// dynamic shared memory ahead of the slice: the candidate buffers
+// [2][kMaxCluster], then the warp results [2][kWarps], values and indices
+constexpr int kClusterHeader =
+    2 * kMaxCluster * static_cast<int>(sizeof(Cand)) + 2 * kWarps * 8;
+
+__global__ void __launch_bounds__(kThreads, 1)
+fps_cluster_kernel(const float* __restrict__ points,   // (B, n, 3)
+                   const uint8_t* __restrict__ mask,   // (B, n)
+                   int32_t n, int32_t per_block, int32_t n_samples,
+                   int32_t start,
+                   int32_t* __restrict__ out) {        // (B, n_samples)
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cl = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t b = blockIdx.x / cl;
+  const float* pts = points + b * n * 3;
+  const uint8_t* msk = mask + b * n;
+  int32_t* o = out + b * n_samples;
+
+  Cand* cand = reinterpret_cast<Cand*>(cluster_smem);
+  float* wv = reinterpret_cast<float*>(cand + 2 * kMaxCluster);
+  int* wi = reinterpret_cast<int*>(wv + 2 * kWarps);
+  float* sx = reinterpret_cast<float*>(cluster_smem + kClusterHeader);
+  float* sy = sx + per_block;
+  float* sz = sy + per_block;
+  float* dist = sz + per_block;
+  uint8_t* sm = reinterpret_cast<uint8_t*>(dist + per_block);
+
+  // this block's slice, points [lo, lo + count); the last may be short or
+  // empty
+  const int lo = min(rank * per_block, n);
+  const int count = min(per_block, n - lo);
+  for (int i = tid; i < count; i += kThreads) {
+    const int64_t g = lo + i;
+    sx[i] = pts[3 * g];
+    sy[i] = pts[3 * g + 1];
+    sz[i] = pts[3 * g + 2];
+    sm[i] = msk[g];
+    dist[i] = kBig;
+  }
+  if (rank == 0 && tid == 0) o[0] = start;
+  float lx = pts[3 * static_cast<int64_t>(start)];
+  float ly = pts[3 * static_cast<int64_t>(start) + 1];
+  float lz = pts[3 * static_cast<int64_t>(start) + 2];
+  // every block runs, and holds its slice, before any block stores into
+  // another's shared memory
+  cluster.sync();
+
+  for (int s = 1; s < n_samples; ++s) {
+    // -inf, so that the first point a thread sees replaces it even when
+    // every point is masked; a thread or a block with no point keeps
+    // (-inf, INT_MAX), which loses to every point
+    Best best = {-__int_as_float(0x7f800000), 0x7fffffff};
+    for (int i = tid; i < count; i += kThreads) {
+      const float dx = __fsub_rn(sx[i], lx);
+      const float dy = __fsub_rn(sy[i], ly);
+      const float dz = __fsub_rn(sz[i], lz);
+      const float d = __fadd_rn(
+          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      const float dm = fminf(dist[i], d);
+      dist[i] = dm;
+      const float v = sm[i] ? dm : -kBig;
+      if (v > best.v) {  // i rises, so a tie keeps the lower index
+        best.v = v;
+        best.i = lo + i;
+      }
+    }
+    best = warp_best(best);
+    const int buf = s & 1;
+    if (lane == 0) {
+      wv[buf * kWarps + warp] = best.v;
+      wi[buf * kWarps + warp] = best.i;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      Best blk = {wv[buf * kWarps + lane], wi[buf * kWarps + lane]};
+      blk = warp_best(blk);
+      if (lane < cl) {  // lane r stores into block r
+        Cand c = {blk.v, blk.i, 0.0f, 0.0f, 0.0f};
+        if (blk.i != 0x7fffffff) {
+          c.x = sx[blk.i - lo];
+          c.y = sy[blk.i - lo];
+          c.z = sz[blk.i - lo];
+        }
+        *cluster.map_shared_rank(cand + buf * kMaxCluster + rank, lane) = c;
+      }
+    }
+    cluster.sync();
+    const Cand* got = cand + buf * kMaxCluster;
+    Best all = {-__int_as_float(0x7f800000), 0x7fffffff};
+    if (lane < cl) {
+      all.v = got[lane].v;
+      all.i = got[lane].i;
+    }
+    all = warp_best(all);
+    const Cand& w = got[all.i / per_block];  // the block that owns it
+    lx = w.x;
+    ly = w.y;
+    lz = w.z;
+    if (rank == 0 && tid == 0) o[s] = all.i;
+  }
+  // no block leaves while another may still touch its shared memory
+  cluster.sync();
+}
+
 }  // namespace
 
-// floats of scratch the kernel needs per cloud of n points (0 when the
-// distance cache fits in shared memory)
-extern "C" int fps_scratch_floats(int n) { return cache_fits(n) ? 0 : n; }
+// The launch plan comes from ops/cuda/pointnet.py::fps_plan. cluster == 0:
+// the one-block body, with the cloud in smem_bytes of dynamic shared memory
+// when n <= 12,047, or, above the cluster's capacity, with the cache in
+// scratch, (B, n) floats, and no dynamic shared memory (the plan sends no
+// cloud of 12,048 to 51,200 points to this body, whose cache_fits branch
+// for them is left for removal); cluster >= 1: the cluster body,
+// CL = cluster blocks a cloud, per_block points each. A plan the body cannot run is refused with
+// cudaErrorInvalidValue, a launch the card refuses with its error; nothing
+// falls back to another body.
+namespace {
+
+cudaError_t cluster_config(int cluster, int smem_bytes, int grid,
+                           void* stream, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(grid);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem_bytes;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
+bool cluster_plan_ok(int n, int cluster, int per_block, int smem_bytes) {
+  return cluster >= 1 && cluster <= kMaxCluster && per_block >= 1 &&
+         static_cast<int64_t>(cluster) * per_block >= n &&
+         smem_bytes >= kClusterHeader + 17 * per_block &&
+         smem_bytes <= kSmemPerBlock;
+}
+
+}  // namespace
+
+// how many clusters of this plan the card can hold at once (0: it cannot
+// place one), or minus the CUDA error
+extern "C" int fps_max_active_clusters(int cluster, int per_block,
+                                       int smem_bytes) {
+  if (!cluster_plan_ok(1, cluster, per_block, smem_bytes)) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t err = cluster_config(cluster, smem_bytes, cluster, nullptr,
+                                   &attr, &cfg);
+  int count = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveClusters(&count, fps_cluster_kernel, &cfg);
+  }
+  return err == cudaSuccess ? count : -static_cast<int>(err);
+}
 
 extern "C" int fps_launch(const void* points, const void* mask, void* scratch,
-                          int b, int n, int n_samples, int start, void* out,
+                          int b, int n, int n_samples, int start, int cluster,
+                          int per_block, int smem_bytes, void* out,
                           void* stream) {
   if (b <= 0 || n_samples <= 0) return static_cast<int>(cudaGetLastError());
   if (n <= 0 || start < 0 || start >= n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!cache_fits(n) && scratch == nullptr) {
+  if (cluster > 0) {
+    if (!cluster_plan_ok(n, cluster, per_block, smem_bytes)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaLaunchAttribute attr;
+    cudaLaunchConfig_t cfg;
+    cudaError_t err = cluster_config(cluster, smem_bytes, b * cluster, stream,
+                                     &attr, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel,
+                             static_cast<const float*>(points),
+                             static_cast<const uint8_t*>(mask),
+                             static_cast<int32_t>(n),
+                             static_cast<int32_t>(per_block),
+                             static_cast<int32_t>(n_samples),
+                             static_cast<int32_t>(start),
+                             static_cast<int32_t*>(out));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the two cases the plan gives this body: the cloud in shared memory, or
+  // everything in device memory
+  const bool in_smem = cloud_fits(n);
+  if ((in_smem && smem_bytes < n * 17) || smem_bytes > kSmemPerBlock ||
+      (!in_smem && (cache_fits(n) || scratch == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  size_t bytes = 0;
-  if (cloud_fits(n)) {
-    bytes = static_cast<size_t>(n) * 17;
-  } else if (cache_fits(n)) {
-    bytes = static_cast<size_t>(n) * 4;
-  }
-  bytes = (bytes + 15) / 16 * 16;
   cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBudget + 16);
+      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<<<b, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  fps_kernel<<<b, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(points), static_cast<const uint8_t*>(mask),
       static_cast<float*>(scratch), n, n_samples, start,
       static_cast<int32_t*>(out));

@@ -11,7 +11,8 @@ the same clusters as its ``ops/clustering.py`` (``dbscan_columns``):
   2. core points have at least ``min_samples`` eps-neighbours, self
      included (the count kernel);
   3. every core point takes the smallest point index of its core-core
-     eps component (the propagation kernel, to its fixpoint);
+     eps component (the propagation: one union-find pass on the card,
+     sweeps to the fixpoint on the CPU);
   4. border points take the smallest adjacent core label (the border-min
      kernel); the rest is noise;
   5. labels return to point order (the gather kernel) and become dense ids
@@ -36,7 +37,8 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.columns import (
 
 # Propagation sweeps allowed per unit of the configs' ``max_cc_iters``: the
 # JAX package's budget, whose iteration is two orientations of 4
-# Gauss-Seidel passes each.
+# Gauss-Seidel passes each. Only the CPU's sweeps read it; the card's
+# union-find always reaches the fixpoint.
 SWEEPS_PER_CC_ITER = 8
 
 
@@ -139,8 +141,9 @@ def dbscan_gs(points: torch.Tensor, mask: torch.Tensor, eps: float,
     """DBSCAN-equivalent clustering of padded ``points`` (N, 3) on a
     ``ncx`` x ``ncy`` column grid of ``column_cap`` slots: (dense labels
     (N,) int32 with -1 noise, n_clusters () int32, overflow () int32).
-    The propagation may take ``max_iters * SWEEPS_PER_CC_ITER`` sweeps and
-    raises if they do not reach its fixpoint."""
+    On the CPU the propagation may take ``max_iters * SWEEPS_PER_CC_ITER``
+    sweeps and raises if they do not reach its fixpoint; on the card it is
+    one union-find pass with no read back to the host."""
     t = build_table(points, mask, eps, ncx, ncy, column_cap)
     nb = (t.table, t.stream_slot, t.py, t.cap, eps)
     counts = columns.column_counts(*nb)

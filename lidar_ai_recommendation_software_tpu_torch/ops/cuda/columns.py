@@ -274,8 +274,8 @@ def propagate_reference(table: torch.Tensor, stream_slot: torch.Tensor,
                         ) -> int:
     """Plain version of ``propagate``: Jacobi sweeps over the core-core
     eps edges, each followed by two pointer-jumping rounds, to the first
-    sweep that changes nothing. The same fixpoint as the kernel's in-place
-    sweeps; the number of sweeps may differ."""
+    sweep that changes nothing. The same fixpoint as the kernel's
+    union-find."""
     rows, cols = [], []
     for ks, nk, hit in _neighbour_chunks(table, stream_slot, py, cap, eps):
         core = labels[ks] != INT_MAX
@@ -302,31 +302,37 @@ def propagate_reference(table: torch.Tensor, stream_slot: torch.Tensor,
     raise _not_converged(max_sweeps)
 
 
+# kernels each propagation on the card launches: init, hook, compress
+PROPAGATE_LAUNCHES = 3
+
+
 def propagate(table: torch.Tensor, stream_slot: torch.Tensor,
               point_stream: torch.Tensor, py: int, cap: int, eps: float,
               labels: torch.Tensor, max_sweeps: int) -> int:
     """Min-label propagation over the core-core eps adjacency, IN PLACE
     on ``labels`` (N,) int32 in stream order (a core point's index,
     INT_MAX elsewhere), to the fixpoint where every core point holds the
-    smallest point index of its component. One launch per sweep; returns
-    the number of sweeps run, the last of which changed nothing. Raises
-    if ``max_sweeps`` sweeps do not reach the fixpoint."""
+    smallest point index of its component.
+
+    On the card: one union-find pass (``csrc/column_neighbours.cu``),
+    ``PROPAGATE_LAUNCHES`` launches on the current stream (none for an
+    empty stream) and no read back to the host; it always reaches the
+    fixpoint, so ``max_sweeps`` and ``point_stream`` are not read. Returns
+    the launches made.
+    On the CPU: ``propagate_reference``'s Jacobi sweeps; returns the
+    number of sweeps run and raises if ``max_sweeps`` do not reach the
+    fixpoint."""
     if table.device.type == "cpu":
         return propagate_reference(table, stream_slot, point_stream, py,
                                    cap, eps, labels, max_sweeps)
     dev, n = _neighbour_args("propagate", table, stream_slot, labels)
-    _check("point_stream", point_stream, torch.int32, (n,), dev)
     fn = load_library().propagate_launch
-    r2 = float(eps_sq(eps))
     with torch.cuda.device(dev):
-        changed = torch.zeros((), dtype=torch.int32, device=dev)
-        for sweep in range(1, max_sweeps + 1):
-            changed.zero_()
-            err = fn(table.data_ptr(), stream_slot.data_ptr(),
-                     point_stream.data_ptr(), n, py, cap, r2,
-                     labels.data_ptr(), changed.data_ptr(), _stream(dev))
-            LAUNCHES["propagate"] += 1
-            _raise_on(err, "propagate")
-            if int(changed) == 0:  # one host read per sweep
-                return sweep
-    raise _not_converged(max_sweeps)
+        parent = torch.empty(n, dtype=torch.int32, device=dev)
+        err = fn(table.data_ptr(), stream_slot.data_ptr(), n, py, cap,
+                 float(eps_sq(eps)), labels.data_ptr(), parent.data_ptr(),
+                 _stream(dev))
+        launched = PROPAGATE_LAUNCHES if n > 0 else 0
+        LAUNCHES["propagate"] += launched
+    _raise_on(err, "propagate")
+    return launched

@@ -44,6 +44,8 @@ LAUNCHES = {"radius_count": 0, "table_fill": 0, "table_gather": 0,
             "column_counts": 0, "border_min": 0, "propagate": 0,
             "place_dense": 0, "fps_single": 0, "fps_batched": 0,
             "sa_mlp_pool": 0}
+# fps launches by the route of its launch plan (ops/cuda/pointnet.py)
+FPS_ROUTES = {"block": 0, "cluster": 0, "stream": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each launch function in csrc/ (pointers and the stream
@@ -54,10 +56,10 @@ _SIGNATURES = {
     "table_gather_launch": [_P, _P, _I, _I, _P, _P],
     "column_counts_launch": [_P, _P, _I, _I, _I, _F, _P, _P],
     "border_min_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
-    "propagate_launch": [_P, _P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "propagate_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "place_dense_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
-    "fps_scratch_floats": [_I],
-    "fps_launch": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "fps_max_active_clusters": [_I, _I, _I],
+    "fps_launch": [_P, _P, _P] + [_I] * 7 + [_P, _P],
     "sa_mlp_pool_launch": [_P] * 8 + [_I] * 7 + [_P, _P],
 }
 
@@ -67,8 +69,9 @@ PAIRS_PER_CHUNK = 1 << 24
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FPS_ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:

@@ -4,23 +4,37 @@ PyTorch versions.
 
 The counterparts of the JAX package's ``ops/pallas/kernels.py``: ``fps``
 (``_fps_single``, ``_fps_batched``) and ``sa_mlp_pool``. The kernels are
-``csrc/fps.cu`` (one body, a block per cloud) and ``csrc/sa_mlp_pool.cu``.
+``csrc/fps.cu`` (two bodies, picked per cloud size by ``fps_plan``) and
+``csrc/sa_mlp_pool.cu``.
 
 As in ``kernels.py``: a CPU tensor takes the plain version, a CUDA tensor
 the kernel (or an error); each launch adds one to ``LAUNCHES``
-(``fps_single``, ``fps_batched``, ``sa_mlp_pool``).
+(``fps_single``, ``fps_batched``, ``sa_mlp_pool``), and each ``fps``
+launch one to ``FPS_ROUTES`` under the route it took.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Sequence, Tuple
 
 import torch
 
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
-    LAUNCHES, _check, _cuda_device, _raise_on, _stream, load_library)
+    FPS_ROUTES, LAUNCHES, _check, _cuda_device, _raise_on, _stream,
+    load_library)
 
 _BIG = 3.4e38  # the distance cache starts here; masked points rank at -_BIG
+
+# The layout of csrc/fps.cu, which the plan mirrors (the kernel's entry
+# point refuses a plan that gives a block less shared memory than it uses):
+BLOCK_SMEM_BUDGET = 200 * 1024  # the one-block body's shared memory
+CLUSTER_HEADER_BYTES = 832      # candidate buffers and warp results
+SMEM_PER_BLOCK = 232_448        # the most a block of sm_90 may use
+BYTES_PER_POINT = 17            # x, y, z, the distance cache, the mask
+PORTABLE_CLUSTER = 8            # the largest cluster every sm_90 card runs
+POINTS_PER_BLOCK = (SMEM_PER_BLOCK - CLUSTER_HEADER_BYTES) // BYTES_PER_POINT
 
 
 # ---------------------------------------------------------------------------
@@ -61,29 +75,83 @@ def fps_reference(points: torch.Tensor, mask: torch.Tensor, n_samples: int,
     return out[0] if single else out
 
 
+@dataclasses.dataclass(frozen=True)
+class FpsPlan:
+    """How ``csrc/fps.cu`` samples a cloud of ``n`` points.
+
+    route: ``"block"``, one block of 1,024 threads with the cloud in its
+    shared memory; ``"cluster"``, a thread-block cluster of ``cluster``
+    blocks, block r holding points [r * per_block, (r + 1) * per_block)
+    in its shared memory; ``"stream"``, one block reading the coordinates
+    through L2 every step. ``smem_bytes`` of dynamic shared memory a block,
+    ``scratch`` floats of device memory a cloud (the stream route's
+    distance cache)."""
+
+    route: str
+    cluster: int
+    per_block: int
+    smem_bytes: int
+    scratch: int
+
+
+def fps_plan(n: int) -> FpsPlan:
+    """The launch plan for a cloud of ``n`` points, by size alone: one
+    block while the cloud fits in its shared memory (n <= 12,047), then
+    the smallest cluster of at most 8 blocks, the portable size, that
+    holds it (up to 8 x 13,624 = 108,992 points), then one block
+    streaming from L2 with its distance cache in device scratch."""
+    if n * BYTES_PER_POINT <= BLOCK_SMEM_BUDGET:
+        return FpsPlan("block", 1, n, -(-n * BYTES_PER_POINT // 16) * 16, 0)
+    cl = -(-n // POINTS_PER_BLOCK)
+    if cl <= PORTABLE_CLUSTER:
+        per = -(-n // cl)
+        return FpsPlan("cluster", cl, per,
+                       CLUSTER_HEADER_BYTES + BYTES_PER_POINT * per, 0)
+    return FpsPlan("stream", 1, n, 0, n)
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(plan: FpsPlan) -> int:
+    """How many clusters of ``plan`` the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``); raises if it cannot place one."""
+    got = load_library().fps_max_active_clusters(
+        plan.cluster, plan.per_block, plan.smem_bytes)
+    if got < 0:
+        _raise_on(-got, "fps_max_active_clusters")
+    if got == 0:
+        raise RuntimeError(
+            f"the card cannot place a cluster of {plan.cluster} blocks with "
+            f"{plan.smem_bytes} bytes of shared memory each")
+    return got
+
+
 def _fps_launch(name: str, points: torch.Tensor, mask: torch.Tensor,
                 n_samples: int, start_index: int) -> torch.Tensor:
     """Launch ``csrc/fps.cu`` on (B, N, 3) float32 points and a (B, N) bool
-    mask; returns (B, n_samples) int32."""
+    mask by ``fps_plan(N)``; returns (B, n_samples) int32. A launch the
+    card refuses raises; no other route is tried."""
     dev = _cuda_device(points, name)
     b, n = points.shape[0], points.shape[1]
     _check("points", points, torch.float32, (b, n, 3), dev)
     _check("mask", mask, torch.bool, (b, n), dev)
     if not 0 <= start_index < n:
         raise ValueError(f"start_index {start_index} outside [0, {n})")
+    plan = fps_plan(n)
     lib = load_library()
     with torch.cuda.device(dev):
+        if plan.route == "cluster":
+            max_active_clusters(plan)
         out = torch.empty((b, n_samples), dtype=torch.int32, device=dev)
-        # clouds whose distance cache does not fit in shared memory keep it
-        # in this buffer
-        need = lib.fps_scratch_floats(n)
-        scratch = torch.empty((b, need), dtype=torch.float32, device=dev) \
-            if need else None
+        scratch = torch.empty((b, plan.scratch), dtype=torch.float32,
+                              device=dev) if plan.scratch else None
         err = lib.fps_launch(points.data_ptr(), mask.data_ptr(),
-                             scratch.data_ptr() if need else None, b, n,
-                             n_samples, start_index, out.data_ptr(),
+                             scratch.data_ptr() if plan.scratch else None,
+                             b, n, n_samples, start_index,
+                             plan.cluster if plan.route == "cluster" else 0,
+                             plan.per_block, plan.smem_bytes, out.data_ptr(),
                              _stream(dev))
         LAUNCHES[name] += 1
+        FPS_ROUTES[plan.route] += 1
     _raise_on(err, name)
     return out
 

@@ -123,7 +123,7 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     core = (ss >= 0) & (counts >= ms)
     labels0 = torch.where(core, order, C.INT_MAX)
     lab, lab_ref = labels0.clone(), labels0.clone()
-    sweeps = C.propagate(tab, ss, pst, py, cap, eps, lab, 320)
+    launched = C.propagate(tab, ss, pst, py, cap, eps, lab, 320)
     C.propagate_reference(tab, ss, pst, py, cap, eps, lab_ref, 320)
     assert torch.equal(lab, lab_ref)
     bmin = C.border_min(*nb, lab)
@@ -131,7 +131,8 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     got = C.table_gather(bmin, pst, -1)
     assert torch.equal(got, C.table_gather_reference(bmin, pst, -1))
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["propagate"] == sweeps
+    # one union-find pass: the same launches in every clustering
+    assert kernels.LAUNCHES["propagate"] == launched == C.PROPAGATE_LAUNCHES
     for k in ("table_fill", "column_counts", "border_min", "table_gather"):
         assert kernels.LAUNCHES[k] == 1, k
     assert (int(ov) > 0) == (name == "column_overflow")
@@ -189,21 +190,25 @@ def test_centroid_routes_agree_on_card(cuda_device, monkeypatch):
     assert float((got[0] - want[0]).abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("n,m", [(3000, 300), (20_000, 64), (60_000, 32)],
-                         ids=["cloud_in_shared_memory", "cache_in_shared",
-                              "cache_in_device_memory"])
-def test_fps_matches_plain_version(cuda_device, n, m):
+@pytest.mark.parametrize("n,m,route",
+                         [(3000, 300, "block"), (20_000, 64, "cluster"),
+                          (60_000, 32, "cluster"), (120_000, 16, "stream")],
+                         ids=["cloud_in_shared_memory", "cluster_of_2",
+                              "cluster_of_5", "streaming"])
+def test_fps_matches_plain_version(cuda_device, n, m, route):
     rng = np.random.RandomState(n)
     pts = torch.from_numpy(rng.uniform(-20, 20, (2, n, 3)).astype(
         np.float32)).to(cuda_device)
     mask = torch.from_numpy(rng.rand(2, n) > 0.2).to(cuda_device)
+    assert P.fps_plan(n).route == route
     kernels.reset_launch_counts()
     got = P.fps(pts, mask, m)
     assert torch.equal(got, P.fps_reference(pts, mask, m))
-    one = P.fps(pts[1], mask[1], m, start_index=5)
-    assert torch.equal(one, P.fps_reference(pts[1], mask[1], m, 5))
+    one = P.fps(pts[1], mask[1], m, start_index=n - 5)
+    assert torch.equal(one, P.fps_reference(pts[1], mask[1], m, n - 5))
     assert kernels.LAUNCHES["fps_batched"] == 1
     assert kernels.LAUNCHES["fps_single"] == 1
+    assert kernels.FPS_ROUTES[route] == 2
     with pytest.raises(TypeError):
         P.fps_single(pts[0].double(), mask[0], m)
     with pytest.raises(ValueError):
