@@ -10,15 +10,18 @@ Run from the root of a checkout. It
      all started together);
   3. holds every kernel against its plain PyTorch version on the card
      (integers bit-equal) and times both with CUDA events: ``radius_count``
-     at the pipeline's shapes and edge cases, the five column-table kernels
+     at the pipeline's three shapes (also replayed from a CUDA graph, and
+     one kernel a call under the profiler) and edge cases, the five
+     column-table kernels
      of the venue-scale clustering at the 1M-point scan's shapes and on
      edge cases (an empty table, a full column and one past its cap,
      neighbours at exactly eps, a chain across the whole grid, a scattered
      mask; the propagation also captured in a CUDA graph, which a read
      back to the host would break), ``fps`` single and batched on each
-     route of its launch plan (one block, a thread-block cluster, one
-     block streaming from L2; bit-equal; masks, exact ties across the
-     cluster's slices),
+     route of its launch plan (the cloud in registers, one block with the
+     cloud in shared memory, a thread-block cluster, one block streaming
+     from L2; bit-equal; masks, exact ties in one warp and across the
+     cluster's slices, both sides of every register instantiation),
      ``sa_mlp_pool`` at the three shapes of the neural path in float32 and
      bfloat16 (within the stated tolerances), and ``place_dense`` on the
      3M-point scan's own stream and on edge cases (bit-equal);
@@ -34,8 +37,9 @@ Run from the root of a checkout. It
      column kernel launched, a second run bit-identical;
   7. serves the shipped checkpoint through ``NeuralPipeline(device="cuda")
      .analyze`` (the card against the port's CPU run and the JAX package's
-     recorded values, two ``fps_batched`` and two ``sa_mlp_pool`` launches
-     a forward), runs the default-width CrowdNet on a batch of 4 and the
+     recorded values, two ``fps_batched`` launches on the register route
+     and two ``sa_mlp_pool`` launches a forward), runs the default-width
+     CrowdNet on a batch of 4 and the
      100,000-point set-abstraction layer (``fps_single`` -> ``ball_group``
      -> ``group_features`` -> ``sa_mlp_pool``), each against the port's CPU
      run;
@@ -142,6 +146,10 @@ SA_BF16_TOL = 2e-2
 # package's CPU values: products, convolutions and per-cell sums round in
 # another order (the JAX package's own tests allow 1e-4 between its routes)
 NEURAL_TOL = 1e-4
+# the pipeline's radius_count shapes: (cells a side, people capacity, live
+# people, venue span) at 10,000 (the fixture), 40,960 and 262,144 points
+RADIUS_SHAPES = ((64, 1280, 446, 30.0), (96, 5120, 1786, 60.7),
+                 (160, 32768, 11644, 160.0))
 
 
 def max_sweeps() -> int:
@@ -234,10 +242,11 @@ def int_err(got, want) -> int:
 # ---------------------------------------------------------------------------
 
 def radius_cases(dev):
-    """(name, centers, people, pmask) at the shapes the pipeline gives the
-    kernel, plus the edge cases."""
+    """(name, centers, people, pmask) at the three shapes the pipeline
+    gives the kernel, then the edge cases."""
     import numpy as np
     import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
 
     def grid_centres(gx, gy, origin):
         i, j = np.meshgrid(np.arange(gx), np.arange(gy), indexing="ij")
@@ -247,14 +256,13 @@ def radius_cases(dev):
 
     def case(name, centres, people, mask):
         return (name, torch.from_numpy(centres).to(dev),
-                torch.from_numpy(np.ascontiguousarray(people, np.float32))
-                .to(dev), torch.from_numpy(mask).to(dev))
+                torch.from_numpy(np.ascontiguousarray(people, np.float32)
+                                 .reshape(-1, 2)).to(dev),
+                torch.from_numpy(mask).to(dev))
 
     rng = np.random.RandomState(0)
     out = []
-    for gx, k, live, span in ((64, 1280, 446, 30.0),
-                              (96, 5120, 1786, 60.7),
-                              (160, 32768, 11644, 160.0)):
+    for gx, k, live, span in RADIUS_SHAPES:
         centres = grid_centres(gx, gx, (-span / 2, -span / 2))
         people = rng.uniform(-span / 2, span / 2, (k, 2))
         out.append(case(f"{gx * gx}x{k} live prefix {live}", centres,
@@ -265,13 +273,109 @@ def radius_cases(dev):
                     rng.rand(5120) < 0.3))
     out.append(case("9216x5120 no people", centres, people,
                     np.zeros(5120, bool)))
+    tile = kernels.RADIUS_PEOPLE_TILE
+    out.append(case("9216x5120 a dead tile between two live ones", centres,
+                    people, (np.arange(5120) // tile) % 2 == 0))
+    ragged = rng.uniform(-12, 12, (1000, 2)).astype(np.float32)
+    out.append(case("1000x1000 (neither a multiple of its tile)",
+                    ragged, rng.uniform(-12, 12, (1000, 2)),
+                    np.ones(1000, bool)))
+    out.append(case("1x1000 (one centre)", ragged[:1],
+                    ragged[0] + rng.uniform(-3, 3, (1000, 2)),
+                    np.ones(1000, bool)))
+    out.append(case("1000x0 (no person)", ragged, np.zeros((0, 2)),
+                    np.zeros(0, bool)))
+    out.append(case("1000x5000 valid only in the last tile", ragged,
+                    rng.uniform(-12, 12, (5000, 2)),
+                    np.arange(5000) >= 4995))
     centre = np.float32([4.5, 4.5])
     boundary = np.stack([centre + [RADIUS, 0.0], centre + [0.0, -RADIUS],
                          centre + [RADIUS + 1e-3, 0.0], centre,
                          centre + [-RADIUS, 0.0]]).astype(np.float32)
     out.append(case("256x5 exact radius", grid_centres(16, 16, (0.0, 0.0)),
                     boundary, np.ones(5, bool)))
+    # two centre tiles of a 32 x 32 grid (x 0.5-15.5 and 16.5-31.5): people
+    # exactly at the radius outside each tile's bounding box, and 1e-3
+    # beyond, on all four sides
+    edges = []
+    for x in (0.5, 15.5, 16.5, 31.5):
+        side = -1.0 if x in (0.5, 16.5) else 1.0
+        for extra in (0.0, 1e-3):
+            edges.append([x + side * (RADIUS + extra), 7.5])
+    for y in (0.5, 31.5):
+        side = -1.0 if y == 0.5 else 1.0
+        for extra in (0.0, 1e-3):
+            edges.append([3.5, y + side * (RADIUS + extra)])
+    out.append(case("1024x12 exact radius at the tiles' edges",
+                    grid_centres(32, 32, (0.0, 0.0)),
+                    np.float32(edges), np.ones(len(edges), bool)))
     return out
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn`` replayed from a CUDA
+    graph that captured ``iters`` calls: the kernels' time without the
+    wrapper's host cost. A read of the device inside ``fn`` would fail the
+    capture."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def device_kernels(fn) -> dict:
+    """{kernel name: launches} of one call of ``fn`` under
+    ``torch.profiler``, memsets left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and "memset" not in e.key.lower()}
+
+
+def radius_needed_pairs(centers, people, pmask, radius) -> int:
+    """The pair tests this run's data needs: for each centre tile of the
+    launch plan, its centres times the valid people within the radius of
+    the tile's bounding box, tested as ``csrc/radius_count.cu`` culls them
+    (for every other pair the count is 0 without a test)."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+
+    r2 = float(kernels._radius_sq(radius))
+    valid = people[pmask]
+    pairs = 0
+    for s in range(0, centers.shape[0], kernels.RADIUS_CENTRE_TILE):
+        tile = centers[s:s + kernels.RADIUS_CENTRE_TILE]
+        lo, hi = tile.amin(0), tile.amax(0)
+        gap = torch.where(valid < lo, lo - valid,
+                          torch.where(valid > hi, hi - valid,
+                                      torch.zeros_like(valid)))
+        pairs += tile.shape[0] * int(((gap * gap) <= r2).all(1).sum())
+    return pairs
 
 
 def run_radius_checks(dev) -> dict:
@@ -291,18 +395,46 @@ def run_radius_checks(dev) -> dict:
         if name == "256x5 exact radius":
             require(int(got[4 * 16 + 4]) == 4,
                     "people exactly at the radius must count")
+        if name.startswith("1024x12"):
+            require(int(want.sum()) > 0,
+                    "people exactly at the radius beyond a tile's edge")
         max_err = max(max_err, err)
 
-    name, c, p, m = cases[1]  # the 40,960-point frame's shape
-    ms = cuda_ms(lambda: kernels.radius_count(c, p, m, RADIUS))
-    plain = cuda_ms(lambda: kernels.radius_count_reference(c, p, m, RADIUS))
-    print(f"radius_count {name}: kernel {ms:.6f} ms, plain {plain:.6f} ms")
-    ncent, k, live = c.shape[0], p.shape[0], int(m.sum())
-    # centres and people read once, counts written once; the loop stops at
-    # the live prefix: ~6 operations per live pair test
-    b_ms, b_by = bound(ncent * 8 + k * 9 + ncent * 4, ncent * live * 6)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by}
+    # the wrapper launches the kernel and nothing else, and reads nothing
+    # back: one kernel under the profiler, and a CUDA graph captures it
+    name, c, p, m = cases[1]
+    seen = device_kernels(lambda: kernels.radius_count(c, p, m, RADIUS))
+    print(f"radius_count {name}: kernels of one call {seen}")
+    require(len(seen) == 1 and "radius_count_kernel" in next(iter(seen))
+            and next(iter(seen.values())) == 1,
+            f"radius_count launches one kernel and nothing else: {seen}")
+
+    out = {}
+    for i, (name, c, p, m) in enumerate(cases[:len(RADIUS_SHAPES)]):
+        ms = cuda_ms(lambda: kernels.radius_count(c, p, m, RADIUS))
+        dev_ms = graph_ms(lambda: kernels.radius_count(c, p, m, RADIUS))
+        plain = cuda_ms(lambda: kernels.radius_count_reference(c, p, m,
+                                                               RADIUS))
+        ncent, k, live = c.shape[0], p.shape[0], int(m.sum())
+        pairs = radius_needed_pairs(c, p, m, RADIUS)
+        # centres and people read once, counts written once; 6 operations
+        # (2 differences, 2 products, a sum, a compare) per pair test that
+        # this run's data needs
+        nbytes = ncent * 8 + k * 9 + ncent * 4
+        b_ms, b_by = bound(nbytes, pairs * 6)
+        print(f"radius_count {name}: kernel {ms:.6f} ms, "
+              f"{dev_ms:.6f} ms from a CUDA graph, plain {plain:.6f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}), {pairs} pair tests needed; "
+              f"plan {kernels.radius_plan(ncent, k)}")
+        # the yardstick of earlier runs: every centre against every live
+        # person, as the TPU kernel's loop counts them
+        all_ms, all_by = bound(nbytes, ncent * live * 6)
+        print(f"radius_count {name}: all-pairs bound {all_ms:.6f} ms "
+              f"({all_by}), {ncent * live} pair tests")
+        if i == 1:  # the 40,960-point frame's shape
+            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
+                   "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -757,12 +889,13 @@ def venue_batch(b: int, n: int):
 
 def run_fps_checks(dev, layer_points) -> dict:
     """Both ``fps`` entries against the plain version, indices bit-equal,
-    on every route of the launch plan. ``layer_points`` (100,000, 3)
-    float32 on the card: the set-abstraction layer's cloud. Times:
-    ``fps_single`` at that layer (4,096 samples, the cluster route) and
-    past a cluster's capacity (120,000 -> 256, the streaming route);
-    ``fps_batched`` at both launches of a served forward (1 x 4,096 -> 512
-    and 1 x 512 -> 128)."""
+    on every route of the launch plan and at the edges of every register
+    instantiation. ``layer_points`` (100,000, 3) float32 on the card: the
+    set-abstraction layer's cloud. Times: ``fps_single`` at that layer
+    (4,096 samples, the cluster route) and past a cluster's capacity
+    (120,000 -> 256, the streaming route); ``fps_batched`` at the four
+    launches of a CrowdNet forward (served: 1 x 4,096 -> 512 and 1 x 512
+    -> 128; default width: 4 x 8,192 -> 1,024 and 4 x 1,024 -> 256)."""
     import numpy as np
     import torch
     from lidar_ai_recommendation_software_tpu_torch import scaled_venue
@@ -809,7 +942,7 @@ def run_fps_checks(dev, layer_points) -> dict:
 
     pts, mask, _, _ = venue_batch(4, 8192)
     bp, bm = dev_t(pts), dev_t(mask)
-    got = on_route("block", lambda: P.fps_batched(bp, bm, 1024))
+    got = on_route("registers", lambda: P.fps_batched(bp, bm, 1024))
     same("fps_batched", "4 x 8192 -> 1024", got,
          P.fps_reference(bp, bm, 1024))
     rows = torch.stack([P.fps_single(bp[i], bm[i], 1024) for i in range(4)])
@@ -840,8 +973,47 @@ def run_fps_checks(dev, layer_points) -> dict:
          P.fps_batched(both, torch.stack([lm, lm]), 512),
          P.fps_reference(both, torch.stack([lm, lm]), 512))
 
-    # the cluster route: its first size, 2 and 5 blocks
-    for n in (12_048, 20_000, 60_000):
+    # the register route: both sides of every instantiation's capacity
+    # (the last one's far side is the shared-memory body), a start owned by
+    # the last thread, small and odd sizes
+    rng = np.random.RandomState(3)
+    sizes = [1, 31, 33, 100]
+    for threads, per_thread in P.REGISTER_SHAPES:
+        sizes += [threads * per_thread, threads * per_thread + 1]
+    for n in sizes:
+        rp = P.fps_plan(n)
+        cloud = dev_t(rng.uniform(-20, 20, (2, n, 3)).astype(np.float32))
+        valid = dev_t(rng.rand(2, n) > 0.25)
+        m = min(n, 64) + 3
+        # the last thread owns indices threads - 1 + j * threads
+        start = min(rp.threads - 1, n - 1)
+        got = on_route(rp.route, lambda: P.fps_batched(cloud, valid, m,
+                                                       start))
+        same("fps_batched", f"2 x {n} -> {m}, start {start} ({rp.route}, "
+             f"{rp.threads} threads x {rp.per_thread})", got,
+             P.fps_reference(cloud, valid, m, start))
+    cloud = dev_t(rng.uniform(-20, 20, (1, 512, 3)).astype(np.float32))
+    none = torch.zeros(1, 512, dtype=torch.bool, device=dev)
+    same("fps_batched", "512, every point masked (one warp)",
+         on_route("registers", lambda: P.fps_batched(cloud, none, 16)),
+         P.fps_reference(cloud, none, 16))
+    i, j = np.meshgrid(np.arange(16), np.arange(32), indexing="ij")
+    small = dev_t(np.stack([i.ravel(), j.ravel(), np.zeros(512)], 1)
+                  .astype(np.float32))[None]
+    sm1 = torch.ones(1, 512, dtype=torch.bool, device=dev)
+    require(P.fps_plan(512).threads == 32, "512 points take one warp")
+    same("fps_batched", "16 x 32 lattice (exact ties, one warp)",
+         on_route("registers", lambda: P.fps_batched(small, sm1, 256)),
+         P.fps_reference(small, sm1, 256))
+    # the shared-memory body between the register body and the cluster
+    for n in (13_000, 13_643):
+        got = on_route("block", lambda: P.fps_single(
+            layer_points[:n].contiguous(), ones[:n], 256, start_index=n - 1))
+        same("fps_single", f"{n} -> 256 (shared memory)", got,
+             P.fps_reference(layer_points[:n], ones[:n], 256, n - 1))
+
+    # the cluster route: its first size (2 blocks), 2 and 5 blocks
+    for n in (13_644, 20_000, 60_000):
         got = on_route("cluster", lambda: P.fps_single(
             layer_points[:n].contiguous(), ones[:n], 256))
         same("fps_single", f"{n} -> 256 (a cluster of "
@@ -909,18 +1081,25 @@ def run_fps_checks(dev, layer_points) -> dict:
     print(f"fps_single {n_big} -> 256 (streaming): kernel {ms:.6f} ms, "
           f"{ms / 255 * 1e3:.3f} us a step")
 
-    # the two launches of a served forward: SA1 samples 512 of the 4,096
-    # padded points, SA2 128 of those 512 centroids
+    # the launches of a forward: served, SA1 samples 512 of the 4,096
+    # padded points and SA2 128 of those 512 centroids; default width, 1,024
+    # of 8,192 and 256 of 1,024 on a batch of 4
     served = []
-    for n, m in ((4096, 512), (512, 128)):
-        sp, sm = bp[:1, :n].contiguous(), bm[:1, :n].contiguous()
+    for b, n, m in ((1, 4096, 512), (1, 512, 128), (4, 8192, 1024),
+                    (4, 1024, 256)):
+        sp, sm = bp[:b, :n].contiguous(), bm[:b, :n].contiguous()
+        fp = P.fps_plan(n)
         ms = cuda_ms(lambda: P.fps_batched(sp, sm, m))
+        dev_ms = graph_ms(lambda: P.fps_batched(sp, sm, m))
         plain = cuda_ms(lambda: P.fps_reference(sp, sm, m), iters=2, warm=1)
-        b_ms, b_by = fps_bound(1, n, m)
-        print(f"fps_batched 1 x {n} -> {m}: kernel {ms:.6f} ms, plain "
+        b_ms, b_by = fps_bound(b, n, m)
+        print(f"fps_batched {b} x {n} -> {m} ({fp.route}, "
+              f"{fp.threads} threads x {fp.per_thread}): kernel "
+              f"{ms:.6f} ms, {dev_ms:.6f} ms from a CUDA graph, plain "
               f"{plain:.6f} ms, bound {b_ms:.6f} ms ({b_by}); "
               f"{ms / (m - 1) * 1e3:.3f} us a step")
-        served.append((ms, plain, b_ms, b_by))
+        if b == 1:
+            served.append((ms, plain, b_ms, b_by))
     # per launch, the mean over a served forward's two launches, so that
     # launches x (ms - bound_ms) is the forward's loss
     out["fps_batched"] = {
@@ -929,10 +1108,6 @@ def run_fps_checks(dev, layer_points) -> dict:
         "plain_ms": statistics.mean(s[1] for s in served),
         "bound_ms": statistics.mean(s[2] for s in served),
         "bound_by": served[0][3]}
-    ms4 = cuda_ms(lambda: P.fps_batched(bp, bm, 1024))
-    print(f"fps_batched 4 x 8192 -> 1024 (the default model's first "
-          f"layer): kernel {ms4:.6f} ms, bound "
-          f"{fps_bound(4, 8192, 1024)[0]:.6f} ms")
     return out
 
 
@@ -1108,6 +1283,17 @@ def check_neural_reference(out, ref: dict, what: str) -> None:
             require(got[key] == want, f"{what}: {key} {got[key]} vs {want}")
 
 
+def require_register_route(what: str) -> None:
+    """Both ``fps_batched`` launches of the run just traced took the
+    register body."""
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    routes = {k: v for k, v in kernels.FPS_ROUTES.items() if v}
+    print(f"{what}: fps routes {routes}")
+    require(routes == {"registers": 2},
+            f"{what}: fps_batched must take the register route twice, "
+            f"took {routes}")
+
+
 def run_neural_serving(ident: str) -> dict:
     """``NeuralPipeline.analyze`` with the shipped checkpoint at its full
     configuration (4,096 points, 512 and 128 samples, grid 32) on the card:
@@ -1126,6 +1312,7 @@ def run_neural_serving(ident: str) -> dict:
     require(launches["fps_batched"] == 2 and launches["sa_mlp_pool"] == 2,
             f"a forward launches fps_batched and sa_mlp_pool twice each, "
             f"got {launches}")
+    require_register_route("the served forward")
     g = cfg.grid
     require(out["density"]["density_map"].shape == (g, g)
             and out["flow"]["flow_vectors"]["vectors"].shape == (g * g, 2)
@@ -1184,6 +1371,7 @@ def run_default_model(ident: str) -> None:
                            "default-width model")
     require(launches["fps_batched"] == 2 and launches["sa_mlp_pool"] == 2,
             f"launches of the default model's forward: {launches}")
+    require_register_route("the default model's forward")
     want = forward(cpu_model, cpu_in)
     g = cfg.grid
     require(out["density"].shape == (4, g, g)

@@ -10,45 +10,70 @@
 //     every product and sum rounded on its own (__fmul_rn / __fadd_rn: nvcc
 //     would contract them into fused multiply-adds, and one differing ulp
 //     changes every later index of the argmax chain);
-//   - masked points still update their cache, compete with -3.4e38 and are
-//     never chosen while a valid point is left; with fewer valid points than
-//     samples the indices repeat;
+//   - masked points compete with -3.4e38 and are never chosen while a valid
+//     point is left; with fewer valid points than samples the indices
+//     repeat;
 //   - ties go to the lowest index: the reductions compare (value, index)
 //     pairs, an associative and commutative order, so how the points are
 //     split between threads and blocks does not change the result.
 // The TPU's (rows, 128) coordinate planes and its masked-reduce read of the
 // last point are workarounds of that machine; here the point is indexed.
 //
-// The n_samples steps depend on each other, so a step costs at least one
-// barrier among the threads that share the cloud. Two bodies, and a launch
-// plan (ops/cuda/pointnet.py::fps_plan) that picks one by the cloud's size:
+// The n_samples steps depend on each other, so a step's latency is the
+// whole cost: a pass over the points, an argmax, and at least one barrier
+// among the threads that share the cloud. Three bodies, and a launch plan
+// (ops/cuda/pointnet.py::fps_plan) that picks one by the cloud's size:
 //
-//   - fps_kernel, one block of 1,024 threads a cloud. Up to 12,047 points
-//     (the serving and training shapes) the cloud, its distance cache and
-//     its mask live in shared memory (17 bytes a point) and a step touches
-//     no device memory: a pass over the points, a warp-shuffle argmax, one
+//   - fps_register_kernel<T, P>, one block of T threads a cloud, up to
+//     T x P points (the instantiations in kRegisterShapes, up to 8,192
+//     points: every launch of a CrowdNet forward, served or default width,
+//     whose largest cloud is 8,192).
+//     Each thread holds P points, x, y, z and the cached distance, in
+//     registers, point tid + j * T in slot j, so the first load is
+//     coalesced and a thread meets its indices in rising order; a step
+//     reads no memory for the scan. A masked point (and a slot past n)
+//     caches -3.4e38 from the start: min() keeps it there, so it ranks as
+//     the TPU kernel ranks a masked point with no select in the loop. The
+//     argmax maps each thread's best value to an order-preserving unsigned
+//     key, so a warp's argmax is two redux.sync instructions
+//     (__reduce_max_sync on the key, __reduce_min_sync on the index among
+//     the lanes that hold the maximum), the same total order as comparing
+//     (value, index) pairs. One warp needs no barrier; with W > 1 warps,
+//     lane 0 of each warp writes (key, index) to a slot, the slots
+//     double-buffered by step parity, one __syncthreads, and every warp
+//     reduces the W slots with the same two instructions. The winner's
+//     coordinates come from a read-only copy of the cloud in shared memory
+//     (12 bytes a point, one broadcast load a step): a register array is
+//     never indexed with a runtime value, which would move it to local
+//     memory.
+//   - fps_kernel, one block of 1,024 threads a cloud. From 8,193 to 13,643
+//     points (no workload of the port sends such clouds yet) the cloud, its
+//     distance cache and its mask live in shared memory (17
+//     bytes a point, all of the 227 KB a block may use but the warp
+//     results): a pass over the points, a warp-shuffle argmax, one
 //     __syncthreads, and a second shuffle argmax over the 32 warp results
-//     that every warp repeats, so all threads know the chosen index without
-//     a second barrier. Clouds larger than a cluster holds take the same
-//     body with the coordinates read through L2 every step and the cache in
-//     a device scratch buffer (n * 17 bytes a step through one SM).
+//     that every warp repeats. Above a cluster's capacity (108,992 points)
+//     the same body streams: the coordinates are read through L2 every
+//     step and the cache lives in a device scratch buffer (n * 17 bytes a
+//     step through one SM).
 //   - fps_cluster_kernel, a thread-block cluster of CL blocks of 1,024
-//     threads a cloud (CL <= 8, the portable size): each block keeps a contiguous slice of the cloud in its own
-//     shared memory for the whole run (x, y, z planes, the cache, the mask),
-//     so a 100,000-point cloud (CL = 8, 12,500 points a block) is read from
-//     device memory once. A step: each thread updates its points' cache and
-//     takes its best (value, index); a warp-shuffle argmax; lane 0 of each
-//     warp writes the warp's best to shared memory; one __syncthreads; warp
-//     0 reduces the 32 to the block's best and its lanes store it, with the
-//     winner's x, y, z, into slot [rank] of every block's candidate buffer
-//     (distributed shared memory, remote stores); one cluster barrier; then
-//     every warp reads the CL candidates from its own shared memory and
-//     reduces them, so every thread knows the chosen point and its
-//     coordinates with no read of device memory and no second barrier.
-//     The candidate buffers alternate by step parity, which makes one
-//     cluster barrier a step enough: a block writes buffer s & 1 again only
-//     after the barrier of step s + 1, which every block reaches after it
-//     has read its step-s candidates.
+//     threads a cloud (2 <= CL <= 8, the portable size), for 13,644 to
+//     108,992 points: each block keeps a contiguous slice of the cloud in
+//     its own shared memory for the whole run (x, y, z planes, the cache,
+//     the mask), so a 100,000-point cloud (CL = 8, 12,500 points a block)
+//     is read from device memory once. A step: each thread updates its
+//     points' cache and takes its best (value, index); a warp-shuffle
+//     argmax; lane 0 of each warp writes the warp's best to shared memory;
+//     one __syncthreads; warp 0 reduces the 32 to the block's best and its
+//     lanes store it, with the winner's x, y, z, into slot [rank] of every
+//     block's candidate buffer (distributed shared memory, remote stores);
+//     one cluster barrier; then every warp reads the CL candidates from its
+//     own shared memory and reduces them, so every thread knows the chosen
+//     point and its coordinates with no read of device memory and no
+//     second barrier. The candidate buffers alternate by step parity,
+//     which makes one cluster barrier a step enough: a block writes buffer
+//     s & 1 again only after the barrier of step s + 1, which every block
+//     reaches after it has read its step-s candidates.
 //     Why push and not pull: if every warp read all CL x 32 warp results
 //     from the other blocks, a step would move 64 KB of remote reads into
 //     each block (8 B x 32 lanes x CL x 32 warps), hundreds of ns through
@@ -57,10 +82,13 @@
 //
 // What bounds it on the H100: the chain of n_samples dependent steps. The
 // bytes the function must move (n * 13 in, n_samples * 4 out) and its 9
-// operations per point and step are far below any reachable time; a step
-// costs the pass over a block's points from shared memory (about 12 a
-// thread at 100,000 points), three shuffle reductions, a block barrier and
-// a cluster barrier.
+// operations per point and step are far below any reachable time. In the
+// register body a step is 12 instructions a point (3 subtractions, 3
+// products, 2 sums, a minimum, a compare, 2 selects) issued by one SM's 4
+// schedulers, plus two redux pairs and a barrier; in the cluster body the
+// pass over a block's points from shared memory (about 12 a thread at
+// 100,000 points), three shuffle reductions, a block barrier and a cluster
+// barrier.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,7 +101,10 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr float kBig = 3.4e38f;
-constexpr int kSmemBudget = 200 * 1024;  // of the 227 KB a block may use
+constexpr int kSmemPerBlock = 232448;  // the most a block of sm_90 may use
+// fps_kernel's static shared memory: the warp results [2][kWarps], values
+// and indices; the rest of kSmemPerBlock is its dynamic shared memory
+constexpr int kBlockStatic = 2 * kWarps * 8;
 
 struct Best {
   float v;
@@ -95,12 +126,147 @@ __device__ __forceinline__ Best warp_best(Best x) {
   return x;
 }
 
-// bytes of dynamic shared memory: the cache, then x, y, z planes and the mask
-__host__ __device__ inline bool cache_fits(int n) {
-  return static_cast<int64_t>(n) * 4 <= kSmemBudget;
+// ---------------------------------------------------------------------------
+// the register body
+// ---------------------------------------------------------------------------
+
+// (threads, points a thread) of each instantiation, smallest first; the
+// plan takes the first with threads x points >= n
+struct RegisterShape {
+  int threads;
+  int points;
+};
+constexpr RegisterShape kRegisterShapes[] = {
+    {32, 16}, {128, 16}, {256, 16}, {512, 16}};
+constexpr int kRegisterShapeCount =
+    sizeof(kRegisterShapes) / sizeof(kRegisterShapes[0]);
+
+// An order-preserving map of a float onto an unsigned key: a negative float
+// has all its bits flipped, a positive one only its sign bit, so key(a) <
+// key(b) exactly when a < b, except that -0.0 maps below +0.0. The values
+// ranked here are cached distances, sums of squares, which are never -0.0
+// ((-0.0) * (-0.0) is +0.0, and so is +0.0 + +0.0), -kBig for a masked
+// point, and -inf for a thread or warp with no point, which maps below
+// every point.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  const uint32_t u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
+
+template <int T, int P>
+__global__ void __launch_bounds__(T)
+fps_register_kernel(const float* __restrict__ points,   // (B, n, 3)
+                    const uint8_t* __restrict__ mask,   // (B, n)
+                    int32_t n, int32_t n_samples, int32_t start,
+                    int32_t* __restrict__ out) {        // (B, n_samples)
+  constexpr int W = T / 32;
+  extern __shared__ float cloud[];  // x, y, z planes: the winners' copy
+  __shared__ uint32_t wkey[2][W];
+  __shared__ uint32_t widx[2][W];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t b = blockIdx.x;
+  const float* pts = points + b * n * 3;
+  const uint8_t* msk = mask + b * n;
+  int32_t* o = out + b * n_samples;
+  float* sx = cloud;
+  float* sy = sx + n;
+  float* sz = sy + n;
+
+  float x[P], y[P], z[P], dist[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int i = tid + j * T;
+    x[j] = 0.0f;
+    y[j] = 0.0f;
+    z[j] = 0.0f;
+    // a masked point, or a slot past the cloud, ranks at -kBig for good:
+    // min(-kBig, d) is -kBig for every distance d >= 0. A slot past the
+    // cloud ties with masked points but has a larger index than all of
+    // them, so it is never chosen.
+    dist[j] = -kBig;
+    if (i < n) {
+      x[j] = pts[3 * i];
+      y[j] = pts[3 * i + 1];
+      z[j] = pts[3 * i + 2];
+      sx[i] = x[j];
+      sy[i] = y[j];
+      sz[i] = z[j];
+      if (msk[i]) dist[j] = kBig;
+    }
+  }
+  if (tid == 0) o[0] = start;
+  __syncthreads();
+
+  float lx = sx[start];
+  float ly = sy[start];
+  float lz = sz[start];
+  for (int s = 1; s < n_samples; ++s) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float dx = __fsub_rn(x[j], lx);
+      const float dy = __fsub_rn(y[j], ly);
+      const float dz = __fsub_rn(z[j], lz);
+      const float d = __fadd_rn(
+          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      dist[j] = fminf(dist[j], d);
+    }
+    // the thread's argmax as a tree over its slots (depth log2 P, not a
+    // chain of P dependent compares): each node joins two runs of slots,
+    // the left one of lower indices, and takes the right only when it is
+    // strictly larger, so a tie keeps the lower index
+    float bv[P];
+    int bj[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      bv[j] = dist[j];
+      bj[j] = j;
+    }
+#pragma unroll
+    for (int w = 1; w < P; w *= 2) {
+#pragma unroll
+      for (int j = 0; j + w < P; j += 2 * w) {
+        if (bv[j + w] > bv[j]) {
+          bv[j] = bv[j + w];
+          bj[j] = bj[j + w];
+        }
+      }
+    }
+    const uint32_t key = order_key(bv[0]);
+    uint32_t top = __reduce_max_sync(0xffffffffu, key);
+    uint32_t win = __reduce_min_sync(
+        0xffffffffu, key == top ? static_cast<uint32_t>(tid + bj[0] * T)
+                                : 0xffffffffu);
+    if constexpr (W > 1) {
+      const int buf = s & 1;
+      if (lane == 0) {
+        wkey[buf][warp] = top;
+        widx[buf][warp] = win;
+      }
+      __syncthreads();
+      // a slot past the warps holds key 0, below every warp's key
+      const uint32_t k2 = lane < W ? wkey[buf][lane] : 0u;
+      const uint32_t i2 = lane < W ? widx[buf][lane] : 0xffffffffu;
+      top = __reduce_max_sync(0xffffffffu, k2);
+      win = __reduce_min_sync(0xffffffffu, k2 == top ? i2 : 0xffffffffu);
+    }
+    lx = sx[win];
+    ly = sy[win];
+    lz = sz[win];
+    if (tid == 0) o[s] = static_cast<int32_t>(win);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the shared-memory and streaming body
+// ---------------------------------------------------------------------------
+
+// the whole cloud in dynamic shared memory: the cache, then x, y, z planes
+// and the mask
 __host__ __device__ inline bool cloud_fits(int n) {
-  return static_cast<int64_t>(n) * 17 <= kSmemBudget;
+  return static_cast<int64_t>(n) * 17 <= kSmemPerBlock - kBlockStatic;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -121,7 +287,7 @@ fps_kernel(const float* __restrict__ points,   // (B, n, 3)
   const uint8_t* msk = mask + b * n;
   int32_t* o = out + b * n_samples;
 
-  float* dist = cache_fits(n) ? smem : scratch + b * n;
+  float* dist = smem;
   const float* px = pts;
   const float* py = pts + 1;
   const float* pz = pts + 2;
@@ -142,6 +308,8 @@ fps_kernel(const float* __restrict__ points,   // (B, n, 3)
     pz = sz;
     msk = sm;
     stride = 1;
+  } else {
+    dist = scratch + b * n;
   }
   for (int i = tid; i < n; i += kThreads) dist[i] = kBig;
   if (tid == 0) o[0] = start;
@@ -196,7 +364,6 @@ struct Cand {
 };
 
 constexpr int kMaxCluster = 8;  // the portable cluster size
-constexpr int kSmemPerBlock = 232448;  // the most a block of sm_90 may use
 // dynamic shared memory ahead of the slice: the candidate buffers
 // [2][kMaxCluster], then the warp results [2][kWarps], values and indices
 constexpr int kClusterHeader =
@@ -308,15 +475,19 @@ fps_cluster_kernel(const float* __restrict__ points,   // (B, n, 3)
 
 }  // namespace
 
-// The launch plan comes from ops/cuda/pointnet.py::fps_plan. cluster == 0:
-// the one-block body, with the cloud in smem_bytes of dynamic shared memory
-// when n <= 12,047, or, above the cluster's capacity, with the cache in
-// scratch, (B, n) floats, and no dynamic shared memory (the plan sends no
-// cloud of 12,048 to 51,200 points to this body, whose cache_fits branch
-// for them is left for removal); cluster >= 1: the cluster body,
-// CL = cluster blocks a cloud, per_block points each. A plan the body cannot run is refused with
-// cudaErrorInvalidValue, a launch the card refuses with its error; nothing
-// falls back to another body.
+// The launch plan comes from ops/cuda/pointnet.py::fps_plan.
+//   - per_thread > 0: the register body, threads x per_thread one of
+//     kRegisterShapes and at least n, smem_bytes >= 12 n for the copy of
+//     the cloud;
+//   - cluster == 0, per_thread == 0: the one-block body, with the cloud in
+//     smem_bytes of dynamic shared memory when n <= 13,643, or, when it
+//     does not fit, streaming with the cache in scratch, (B, n) floats,
+//     and no dynamic shared memory;
+//   - cluster >= 1: the cluster body, CL = cluster blocks a cloud,
+//     per_block points each.
+// A plan the body cannot run is refused with cudaErrorInvalidValue, a
+// launch the card refuses with its error; nothing falls back to another
+// body.
 namespace {
 
 cudaError_t cluster_config(int cluster, int smem_bytes, int grid,
@@ -346,6 +517,41 @@ bool cluster_plan_ok(int n, int cluster, int per_block, int smem_bytes) {
          smem_bytes <= kSmemPerBlock;
 }
 
+// the register body's instantiation for (threads, per_thread), if there is
+// one, on b clouds of n points
+template <int I = 0>
+cudaError_t launch_registers(const void* points, const void* mask, int b,
+                             int n, int n_samples, int start, int threads,
+                             int per_thread, int smem_bytes, void* out,
+                             void* stream) {
+  if constexpr (I == kRegisterShapeCount) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int T = kRegisterShapes[I].threads;
+    constexpr int P = kRegisterShapes[I].points;
+    if (threads != T || per_thread != P) {
+      return launch_registers<I + 1>(points, mask, b, n, n_samples, start,
+                                     threads, per_thread, smem_bytes, out,
+                                     stream);
+    }
+    constexpr int static_bytes = 2 * (T / 32) * 8;  // the warp slots
+    if (n > T * P || smem_bytes < 12 * n ||
+        smem_bytes > kSmemPerBlock - static_bytes) {
+      return cudaErrorInvalidValue;
+    }
+    cudaError_t err = cudaFuncSetAttribute(
+        fps_register_kernel<T, P>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+    fps_register_kernel<T, P>
+        <<<b, T, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const float*>(points),
+            static_cast<const uint8_t*>(mask), n, n_samples, start,
+            static_cast<int32_t*>(out));
+    return cudaGetLastError();
+  }
+}
+
 }  // namespace
 
 // how many clusters of this plan the card can hold at once (0: it cannot
@@ -368,11 +574,17 @@ extern "C" int fps_max_active_clusters(int cluster, int per_block,
 
 extern "C" int fps_launch(const void* points, const void* mask, void* scratch,
                           int b, int n, int n_samples, int start, int cluster,
-                          int per_block, int smem_bytes, void* out,
-                          void* stream) {
+                          int per_block, int smem_bytes, int threads,
+                          int per_thread, void* out, void* stream) {
   if (b <= 0 || n_samples <= 0) return static_cast<int>(cudaGetLastError());
   if (n <= 0 || start < 0 || start >= n) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (per_thread > 0) {
+    if (cluster > 0) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(launch_registers(points, mask, b, n, n_samples,
+                                             start, threads, per_thread,
+                                             smem_bytes, out, stream));
   }
   if (cluster > 0) {
     if (!cluster_plan_ok(n, cluster, per_block, smem_bytes)) {
@@ -395,10 +607,11 @@ extern "C" int fps_launch(const void* points, const void* mask, void* scratch,
     return static_cast<int>(cudaGetLastError());
   }
   // the two cases the plan gives this body: the cloud in shared memory, or
-  // everything in device memory
+  // the cache in device scratch
   const bool in_smem = cloud_fits(n);
-  if ((in_smem && smem_bytes < n * 17) || smem_bytes > kSmemPerBlock ||
-      (!in_smem && (cache_fits(n) || scratch == nullptr))) {
+  if (threads != kThreads || (in_smem && smem_bytes < n * 17) ||
+      smem_bytes > kSmemPerBlock - kBlockStatic ||
+      (!in_smem && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), their loader, and the
-``radius_count`` kernel's wrapper and plain PyTorch version.
+``radius_count`` kernel's launch plan, wrapper and plain PyTorch version.
 
 The counterpart of the JAX package's ``ops/pallas/kernels.py``. Beside this
 module, ``columns.py`` wraps the column-table kernels of the venue-scale
@@ -24,6 +24,7 @@ kernel, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -45,13 +46,13 @@ LAUNCHES = {"radius_count": 0, "table_fill": 0, "table_gather": 0,
             "place_dense": 0, "fps_single": 0, "fps_batched": 0,
             "sa_mlp_pool": 0}
 # fps launches by the route of its launch plan (ops/cuda/pointnet.py)
-FPS_ROUTES = {"block": 0, "cluster": 0, "stream": 0}
+FPS_ROUTES = {"registers": 0, "block": 0, "cluster": 0, "stream": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each launch function in csrc/ (pointers and the stream
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
-    "radius_count_launch": [_P, _P, _P, _P, _F, _I, _I, _P, _P],
+    "radius_count_launch": [_P, _P, _P, _F] + [_I] * 5 + [_P, _P],
     "table_fill_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "table_gather_launch": [_P, _P, _I, _I, _P, _P],
     "column_counts_launch": [_P, _P, _I, _I, _I, _F, _P, _P],
@@ -59,7 +60,7 @@ _SIGNATURES = {
     "propagate_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "place_dense_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
     "fps_max_active_clusters": [_I, _I, _I],
-    "fps_launch": [_P, _P, _P] + [_I] * 7 + [_P, _P],
+    "fps_launch": [_P, _P, _P] + [_I] * 9 + [_P, _P],
     "sa_mlp_pool_launch": [_P] * 8 + [_I] * 7 + [_P, _P],
 }
 
@@ -208,13 +209,52 @@ def radius_count_reference(centers: torch.Tensor, people: torch.Tensor,
     return torch.cat(out)
 
 
+# The layout of csrc/radius_count.cu, which the plan mirrors (the kernel's
+# entry point refuses a grid that does not cover its inputs):
+RADIUS_THREADS = 128
+RADIUS_PER_THREAD = 4            # centres a thread holds
+RADIUS_PEOPLE_TILE = 128         # people staged a tile, one a thread
+RADIUS_CENTRE_TILE = RADIUS_THREADS * RADIUS_PER_THREAD
+# blocks the plan aims at: slices of one people tile while the grid stays
+# under it, so that the 132 SMs find live work at the sensor frame's shape;
+# above it, longer slices
+RADIUS_TARGET_BLOCKS = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class RadiusPlan:
+    """How ``csrc/radius_count.cu`` covers C centres x K people: block
+    (x, y) counts centres [x * RADIUS_CENTRE_TILE, (x + 1) *
+    RADIUS_CENTRE_TILE) against people tiles [y * tiles_per_slice, (y + 1) *
+    tiles_per_slice) of RADIUS_PEOPLE_TILE people each, both cut at C and
+    K."""
+
+    tiles_per_slice: int
+    grid: tuple
+
+
+def radius_plan(c: int, k: int) -> RadiusPlan:
+    """The launch plan for ``c`` centres and ``k`` people, by the shapes
+    alone (the live people are counted nowhere): one block per centre tile
+    and slice, the slices one people tile long unless that makes more than
+    ``RADIUS_TARGET_BLOCKS`` blocks. No people (or no centres): a grid with
+    no block, and the kernel only zeroes the output."""
+    centre_tiles = -(-c // RADIUS_CENTRE_TILE)
+    people_tiles = -(-k // RADIUS_PEOPLE_TILE)
+    per_slice = max(1, -(-centre_tiles * people_tiles
+                         // RADIUS_TARGET_BLOCKS))
+    return RadiusPlan(per_slice, (centre_tiles, -(-people_tiles // per_slice)))
+
+
 def radius_count(centers: torch.Tensor, people: torch.Tensor,
                  pmask: torch.Tensor, radius: float) -> torch.Tensor:
     """Count valid people within ``radius`` (inclusive) of each centre.
 
     centers (C, 2) float32, people (K, 2) float32, pmask (K,) bool ->
     (C,) int32. CPU tensors take the plain version; CUDA tensors take the
-    kernel in ``csrc/radius_count.cu``."""
+    kernel in ``csrc/radius_count.cu`` by ``radius_plan(C, K)``: one
+    allocation and one launch function (a zeroing of the output and the
+    kernel), no read of the device."""
     if centers.device.type == "cpu":
         return radius_count_reference(centers, people, pmask, radius)
     dev = _cuda_device(centers, "radius_count")
@@ -222,16 +262,17 @@ def radius_count(centers: torch.Tensor, people: torch.Tensor,
     _check("centers", centers, torch.float32, (c, 2), dev)
     _check("people", people, torch.float32, (k, 2), dev)
     _check("pmask", pmask, torch.bool, (k,), dev)
+    for name, t in (("centers", centers), ("people", people)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned (float2 rows)")
+    plan = radius_plan(c, k)
     fn = load_library().radius_count_launch
     with torch.cuda.device(dev):
-        # live extent = last valid index + 1, left on the device
-        ids = torch.arange(1, k + 1, dtype=torch.int32, device=dev)
-        nv = torch.where(pmask, ids, 0).amax() if k else \
-            torch.zeros((), dtype=torch.int32, device=dev)
         out = torch.empty(c, dtype=torch.int32, device=dev)
         err = fn(centers.data_ptr(), people.data_ptr(), pmask.data_ptr(),
-                 nv.data_ptr(), float(_radius_sq(radius)), c, k,
-                 out.data_ptr(), _stream(dev))
-        LAUNCHES["radius_count"] += 1
+                 float(_radius_sq(radius)), c, k, plan.tiles_per_slice,
+                 *plan.grid, out.data_ptr(), _stream(dev))
+        if plan.grid[0] and plan.grid[1]:
+            LAUNCHES["radius_count"] += 1
     _raise_on(err, "radius_count")
     return out

@@ -4,7 +4,7 @@ PyTorch versions.
 
 The counterparts of the JAX package's ``ops/pallas/kernels.py``: ``fps``
 (``_fps_single``, ``_fps_batched``) and ``sa_mlp_pool``. The kernels are
-``csrc/fps.cu`` (two bodies, picked per cloud size by ``fps_plan``) and
+``csrc/fps.cu`` (three bodies, picked per cloud size by ``fps_plan``) and
 ``csrc/sa_mlp_pool.cu``.
 
 As in ``kernels.py``: a CPU tensor takes the plain version, a CUDA tensor
@@ -29,12 +29,18 @@ _BIG = 3.4e38  # the distance cache starts here; masked points rank at -_BIG
 
 # The layout of csrc/fps.cu, which the plan mirrors (the kernel's entry
 # point refuses a plan that gives a block less shared memory than it uses):
-BLOCK_SMEM_BUDGET = 200 * 1024  # the one-block body's shared memory
-CLUSTER_HEADER_BYTES = 832      # candidate buffers and warp results
 SMEM_PER_BLOCK = 232_448        # the most a block of sm_90 may use
+BLOCK_THREADS = 1024            # the shared-memory and cluster bodies
+BLOCK_STATIC_BYTES = 512        # the one-block body's warp results
+BLOCK_SMEM_BUDGET = SMEM_PER_BLOCK - BLOCK_STATIC_BYTES
+CLUSTER_HEADER_BYTES = 832      # candidate buffers and warp results
 BYTES_PER_POINT = 17            # x, y, z, the distance cache, the mask
 PORTABLE_CLUSTER = 8            # the largest cluster every sm_90 card runs
 POINTS_PER_BLOCK = (SMEM_PER_BLOCK - CLUSTER_HEADER_BYTES) // BYTES_PER_POINT
+# the register body's instantiations, (threads, points a thread), smallest
+# first, and the bytes a point of its shared copy of the cloud takes
+REGISTER_SHAPES = ((32, 16), (128, 16), (256, 16), (512, 16))
+REGISTER_COPY_BYTES = 12
 
 
 # ---------------------------------------------------------------------------
@@ -79,29 +85,45 @@ def fps_reference(points: torch.Tensor, mask: torch.Tensor, n_samples: int,
 class FpsPlan:
     """How ``csrc/fps.cu`` samples a cloud of ``n`` points.
 
-    route: ``"block"``, one block of 1,024 threads with the cloud in its
-    shared memory; ``"cluster"``, a thread-block cluster of ``cluster``
-    blocks, block r holding points [r * per_block, (r + 1) * per_block)
-    in its shared memory; ``"stream"``, one block reading the coordinates
-    through L2 every step. ``smem_bytes`` of dynamic shared memory a block,
-    ``scratch`` floats of device memory a cloud (the stream route's
-    distance cache)."""
+    route: ``"registers"``, one block of ``threads`` threads, each holding
+    ``per_thread`` points in registers; ``"block"``, one block of 1,024
+    threads with the cloud in its shared memory; ``"cluster"``, a
+    thread-block cluster of ``cluster`` blocks, block r holding points
+    [r * per_block, (r + 1) * per_block) in its shared memory;
+    ``"stream"``, one block reading the coordinates through L2 every step.
+    ``smem_bytes`` of dynamic shared memory a block, ``scratch`` floats of
+    device memory a cloud (the stream route's distance cache);
+    ``per_thread`` is 0 but on the register route."""
 
     route: str
     cluster: int
     per_block: int
     smem_bytes: int
     scratch: int
+    threads: int = BLOCK_THREADS
+    per_thread: int = 0
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
 
 
 def fps_plan(n: int) -> FpsPlan:
-    """The launch plan for a cloud of ``n`` points, by size alone: one
-    block while the cloud fits in its shared memory (n <= 12,047), then
-    the smallest cluster of at most 8 blocks, the portable size, that
-    holds it (up to 8 x 13,624 = 108,992 points), then one block
-    streaming from L2 with its distance cache in device scratch."""
+    """The launch plan for a cloud of ``n`` points, by size alone: the
+    smallest register instantiation that holds it (up to 512 x 16 = 8,192
+    points, the largest cloud of a CrowdNet forward), then one block with
+    the cloud in its shared memory (up to 13,643; no workload of the port
+    sends such clouds yet), then the smallest cluster of at most 8 blocks,
+    the portable size, that holds it (2 to 8 blocks of up to 13,624 points,
+    up to 108,992), then one block streaming from L2 with its distance
+    cache in device scratch."""
+    for threads, per_thread in REGISTER_SHAPES:
+        if n <= threads * per_thread:
+            return FpsPlan("registers", 1, n,
+                           _round16(n * REGISTER_COPY_BYTES), 0, threads,
+                           per_thread)
     if n * BYTES_PER_POINT <= BLOCK_SMEM_BUDGET:
-        return FpsPlan("block", 1, n, -(-n * BYTES_PER_POINT // 16) * 16, 0)
+        return FpsPlan("block", 1, n, _round16(n * BYTES_PER_POINT), 0)
     cl = -(-n // POINTS_PER_BLOCK)
     if cl <= PORTABLE_CLUSTER:
         per = -(-n // cl)
@@ -148,8 +170,8 @@ def _fps_launch(name: str, points: torch.Tensor, mask: torch.Tensor,
                              scratch.data_ptr() if plan.scratch else None,
                              b, n, n_samples, start_index,
                              plan.cluster if plan.route == "cluster" else 0,
-                             plan.per_block, plan.smem_bytes, out.data_ptr(),
-                             _stream(dev))
+                             plan.per_block, plan.smem_bytes, plan.threads,
+                             plan.per_thread, out.data_ptr(), _stream(dev))
         LAUNCHES[name] += 1
         FPS_ROUTES[plan.route] += 1
     _raise_on(err, name)

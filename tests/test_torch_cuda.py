@@ -1,7 +1,9 @@
 """The PyTorch port on an NVIDIA GPU: the column-table kernels,
 ``place_dense``, ``fps`` and ``sa_mlp_pool`` against their plain versions,
 and the analytic and the neural pipeline through the CUDA kernels against
-the port's own CPU run. Skipped without a card.
+the port's own CPU run. Skipped without a card. (``radius_count``'s edge
+cases on the card: ``tests/test_torch_radius_count.py`` and
+``chip_smoke.py``.)
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -191,10 +193,11 @@ def test_centroid_routes_agree_on_card(cuda_device, monkeypatch):
 
 
 @pytest.mark.parametrize("n,m,route",
-                         [(3000, 300, "block"), (20_000, 64, "cluster"),
-                          (60_000, 32, "cluster"), (120_000, 16, "stream")],
-                         ids=["cloud_in_shared_memory", "cluster_of_2",
-                              "cluster_of_5", "streaming"])
+                         [(3000, 300, "registers"), (13_000, 64, "block"),
+                          (20_000, 64, "cluster"), (60_000, 32, "cluster"),
+                          (120_000, 16, "stream")],
+                         ids=["cloud_in_registers", "cloud_in_shared_memory",
+                              "cluster_of_2", "cluster_of_5", "streaming"])
 def test_fps_matches_plain_version(cuda_device, n, m, route):
     rng = np.random.RandomState(n)
     pts = torch.from_numpy(rng.uniform(-20, 20, (2, n, 3)).astype(
@@ -213,6 +216,39 @@ def test_fps_matches_plain_version(cuda_device, n, m, route):
         P.fps_single(pts[0].double(), mask[0], m)
     with pytest.raises(ValueError):
         P.fps_single(pts[0], mask[0], m, start_index=n)
+
+
+REGISTER_EDGES = [1, 31, 33, 100] + [
+    t * q + e for t, q in P.REGISTER_SHAPES for e in (0, 1)]
+
+
+@pytest.mark.parametrize("n", REGISTER_EDGES)
+def test_fps_register_route_edges(cuda_device, n):
+    """Both sides of every register instantiation's capacity, with a start
+    owned by the last thread, a mask, and every point masked."""
+    rng = np.random.RandomState(n)
+    plan = P.fps_plan(n)
+    pts = torch.from_numpy(rng.uniform(-20, 20, (2, n, 3)).astype(
+        np.float32)).to(cuda_device)
+    mask = torch.from_numpy(rng.rand(2, n) > 0.3).to(cuda_device)
+    m, start = min(n, 48) + 2, min(plan.threads, n) - 1
+    kernels.reset_launch_counts()
+    for msk in (mask, torch.zeros_like(mask)):
+        got = P.fps_batched(pts, msk, m, start)
+        assert torch.equal(got, P.fps_reference(pts, msk, m, start))
+    assert kernels.FPS_ROUTES[plan.route] == 2
+
+
+def test_fps_one_warp_lattice_ties(cuda_device):
+    """Exact ties on a 16 x 32 lattice through the one-warp body."""
+    i, j = np.meshgrid(np.arange(16), np.arange(32), indexing="ij")
+    lattice = torch.from_numpy(np.stack(
+        [i.ravel(), j.ravel(), np.zeros(512)], 1).astype(np.float32)
+    ).to(cuda_device)[None]
+    ones = torch.ones(1, 512, dtype=torch.bool, device=cuda_device)
+    assert P.fps_plan(512).threads == 32
+    got = P.fps_batched(lattice, ones, 256)
+    assert torch.equal(got, P.fps_reference(lattice, ones, 256))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
@@ -250,6 +286,7 @@ def test_neural_card_matches_cpu(cuda_device):
     card = NeuralPipeline(device="cuda").analyze(cloud)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fps_batched"] == 2
+    assert kernels.FPS_ROUTES["registers"] == 2
     assert kernels.LAUNCHES["sa_mlp_pool"] == 2
     cpu = NeuralPipeline(device="cpu").analyze(cloud)
     assert card["density"]["total_people"] == cpu["density"]["total_people"]

@@ -114,15 +114,55 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _tile_edges_case():
+    """Two centre tiles of a 32 x 32 grid of cells; people at exactly r
+    beyond each tile's bounding box on all four sides, and 1e-3 further."""
+    r = 2.0
+    i, j = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    centers = np.stack([i.ravel() + 0.5, j.ravel() + 0.5], 1)
+    people = []
+    for x, side in ((0.5, -1), (15.5, 1), (16.5, -1), (31.5, 1)):
+        people += [[x + side * (r + e), 7.5] for e in (0.0, 1e-3)]
+    for y, side in ((0.5, -1), (31.5, 1)):
+        people += [[3.5, y + side * (r + e)] for e in (0.0, 1e-3)]
+    return (centers.astype(np.float32), np.float32(people),
+            np.ones(len(people), bool))
+
+
+def _tiles_mask_case(seed, c, k, keep_tile):
+    centers, people, _ = _case(seed, c, k, k, span=12.0)
+    return centers, people, keep_tile(np.arange(k) // 128)
+
+
+# the kernel's edges: shapes that are no multiple of its tiles, one centre,
+# no person, a mask valid only in the last tile or with a dead tile between
+# two live ones, people exactly at the radius beyond a tile's culling box;
+# and the 40,960-point frame's shape (9,216 cells x 5,120 people, 1,786 live)
+CARD_CASES = {
+    **CASES,
+    "sensor_frame_shape": lambda: _case(10, 9216, 5120, 1786, span=60.7),
+    "ragged_tiles": lambda: _case(5, 1000, 1000, 1000, span=12.0),
+    "one_centre": lambda: _case(6, 1, 1000, 1000, span=4.0),
+    "no_person_slot": lambda: _case(7, 1000, 0, 0),
+    "valid_only_in_last_tile": lambda: _tiles_mask_case(
+        8, 700, 1000, lambda t: t == t.max()),
+    "dead_tile_between_live": lambda: _tiles_mask_case(
+        9, 700, 1000, lambda t: (t == 0) | (t == 2)),
+    "exact_radius_at_tile_edges": _tile_edges_case,
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CARD_CASES))
 def test_kernel_matches_plain_version_on_card(cuda_device, name):
-    centers, people, pmask = CASES[name]()
+    centers, people, pmask = CARD_CASES[name]()
     tc, tp, tm = (torch.from_numpy(a).to(cuda_device)
                   for a in (centers, people, pmask))
     before = TK.LAUNCHES["radius_count"]
     got = TK.radius_count(tc, tp, tm, 2.0)
     torch.cuda.synchronize()
-    assert TK.LAUNCHES["radius_count"] == before + 1
+    assert TK.LAUNCHES["radius_count"] == before + (len(people) > 0)
     want = TK.radius_count_reference(tc, tp, tm, 2.0)
     assert torch.equal(got, want)
+    if name == "exact_radius_at_tile_edges":
+        assert int(want.sum()) > 0
