@@ -9,15 +9,19 @@ Run from the root of a checkout. It
   2. builds the port's CUDA kernels from ``csrc/`` (one nvcc per source,
      all started together);
   3. holds every kernel against its plain PyTorch version on the card
-     (integers bit-equal) and times both with CUDA events: ``radius_count``
-     at the pipeline's three shapes (also replayed from a CUDA graph, and
-     one kernel a call under the profiler) and edge cases, the five
-     column-table kernels
-     of the venue-scale clustering at the 1M-point scan's shapes and on
-     edge cases (an empty table, a full column and one past its cap,
-     neighbours at exactly eps, a chain across the whole grid, a scattered
-     mask; the propagation also captured in a CUDA graph, which a read
-     back to the host would break), ``fps`` single and batched on each
+     (integers bit-equal) and times both with CUDA events, and the kernel
+     also replayed from a CUDA graph (the device's time without the
+     wrapper's host cost): ``radius_count`` at the pipeline's three shapes
+     (one kernel a call under the profiler) and edge cases, the five
+     column-table kernels of the venue-scale clustering at the 262,144-,
+     1M- and 3M-point scans' shapes and on edge cases (an empty table, a
+     full column and one past its cap, neighbours at exactly eps, a chain
+     across the whole grid, a scattered mask, points at both ends of every
+     x row's run of the stream, a sparse x row between two rows of full
+     columns, every column full, a cap of 512; the propagation and the
+     count and border-min scan also captured in a CUDA
+     graph, which a read back to the host would break), ``fps`` single and
+     batched on each
      route of its launch plan (the cloud in registers, one block with the
      cloud in shared memory, a thread-block cluster, one block streaming
      from L2; bit-equal; masks, exact ties in one warp and across the
@@ -162,13 +166,18 @@ def max_sweeps() -> int:
 
 
 def require_one_pass(launches: dict, what: str) -> None:
-    """The propagation made its constant number of launches in every
-    clustering of a run (one ``table_fill`` a clustering)."""
+    """Every clustering of a run (one ``table_fill`` a clustering) made
+    one ``column_counts`` and one ``border_min`` launch and the
+    propagation's constant number."""
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
         columns as C)
     runs = launches["table_fill"]
-    print(f"{what}: {runs} clusterings, {launches['propagate']} propagation "
-          f"launches")
+    print(f"{what}: {runs} clusterings, {launches['column_counts']} "
+          f"column_counts, {launches['border_min']} border_min and "
+          f"{launches['propagate']} propagation launches")
+    for k in ("column_counts", "border_min"):
+        require(launches[k] == runs, f"{what}: {launches[k]} {k} launches "
+                f"in {runs} clusterings, one each expected")
     require(launches["propagate"] == C.PROPAGATE_LAUNCHES * runs,
             f"{what}: {launches['propagate']} propagation launches in {runs} "
             f"clusterings, {C.PROPAGATE_LAUNCHES} each expected")
@@ -432,8 +441,8 @@ def run_radius_checks(dev) -> dict:
         print(f"radius_count {name}: all-pairs bound {all_ms:.6f} ms "
               f"({all_by}), {ncent * live} pair tests")
         if i == 1:  # the 40,960-point frame's shape
-            out = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-                   "bound_ms": b_ms, "bound_by": b_by}
+            out = {"max_abs_err": max_err, "ms": ms, "graph_ms": dev_ms,
+                   "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
     return out
 
 
@@ -441,13 +450,22 @@ def run_radius_checks(dev) -> dict:
 # the column-table kernels
 # ---------------------------------------------------------------------------
 
+# the scans whose clustering the column kernels are timed at; the 1M-point
+# scan's times are the kernels' record
+COLUMN_SCANS = ((262_144, "262,144-point scan"), (1_000_000, "1M scan"),
+                (3_000_000, "3M scan"))
+
+
 def column_cases():
     """(name, points (N, 3) float32, mask (N,), eps, min_samples, ncx,
-    ncy, column cap) as numpy: the 1M-point scan's clustering input at
-    the capacities fit_capacity gives it, then the edge cases."""
+    ncy, column cap) as numpy, one at a time: the 262,144-, 1M- and
+    3M-point scans' clustering inputs at the capacities fit_capacity gives
+    them, then the edge cases."""
     import numpy as np
     from lidar_ai_recommendation_software_tpu_torch import scaled_venue
     from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+        column_occupancy_cases)
 
     def padded(pts, n, mask=None):
         buf = np.zeros((n, 3), np.float32)
@@ -456,19 +474,20 @@ def column_cases():
         m[:len(pts)] = True if mask is None else mask
         return buf, m
 
-    out = []
-    venue = scaled_venue(1_000_000)
-    cap = Pipeline(device="cpu").fit_capacity(venue).capacity
-    # the clustering mask of the scan: non-ground, above the 30th z
-    # percentile (preprocess's ground split)
-    ng = venue[:, 2] > np.percentile(venue[:, 2], 30.0)
-    buf, m = padded(venue, cap.cluster_capacity, ng)
-    out.append(("1M scan", buf, m, 0.3, 5, cap.cluster_cells_x,
-                cap.cluster_cells_y, cap.cluster_column_cap))
+    for n_scan, name in COLUMN_SCANS:
+        venue = scaled_venue(n_scan)
+        cap = Pipeline(device="cpu").fit_capacity(venue).capacity
+        # the clustering mask of the scan: non-ground, above the 30th z
+        # percentile (preprocess's ground split)
+        ng = venue[:, 2] > np.percentile(venue[:, 2], 30.0)
+        buf, m = padded(venue, cap.cluster_capacity, ng)
+        del venue
+        yield (name, buf, m, 0.3, 5, cap.cluster_cells_x,
+               cap.cluster_cells_y, cap.cluster_column_cap)
 
     rng = np.random.RandomState(1)
     buf, _ = padded(rng.uniform(-5, 5, (4096, 3)), 4096)
-    out.append(("empty table", buf, np.zeros(4096, bool), 0.3, 5, 32, 32, 8))
+    yield ("empty table", buf, np.zeros(4096, bool), 0.3, 5, 32, 32, 8)
 
     # one point near every column centre of a 16 x 16 grid of columns a
     # little over 0.3 m wide (the corners span 4.8 m); column (3, 3)
@@ -480,7 +499,7 @@ def column_cases():
     extra = [np.array([[(c + 0.5) * 0.3, (c + 0.5) * 0.3, 0.0]])
              + rng.uniform(-0.04, 0.04, (k, 3)) for c, k in ((3, 7), (10, 8))]
     buf, m = padded(np.concatenate([corners, base] + extra), 512)
-    out.append(("full column and one past", buf, m, 0.3, 3, 16, 16, 8))
+    yield ("full column and one past", buf, m, 0.3, 3, 16, 16, 8)
 
     # pairs at exactly float32(eps) along y and z, and just beyond
     e = np.float32(0.35)
@@ -491,7 +510,7 @@ def column_cases():
         pts += [[x, 0, 0], [x, e, 0], [x, 3, 0], [x, 3, e],
                 [x, 6, 0], [x, 6, beyond]]
     buf, m = padded(np.array(pts, np.float32), 512)
-    out.append(("neighbours at exactly eps", buf, m, 0.35, 2, 64, 32, 8))
+    yield ("neighbours at exactly eps", buf, m, 0.35, 2, 64, 32, 8)
 
     # one chain of points 0.285 m apart across all 1,024 columns, its
     # smallest point index at the far end of the stream order
@@ -499,7 +518,7 @@ def column_cases():
     xs = (n_chain - 1 - np.arange(n_chain)) * 0.285
     buf, m = padded(np.stack([xs, np.zeros(n_chain), np.zeros(n_chain)], 1),
                     2048)
-    out.append(("chain across the grid", buf, m, 0.3, 2, 1024, 8, 8))
+    yield ("chain across the grid", buf, m, 0.3, 2, 1024, 8, 8)
 
     # blobs and background, every other point masked at random
     centres = rng.uniform(0, 30, (300, 2))
@@ -508,8 +527,9 @@ def column_cases():
     pts = np.concatenate([np.column_stack([blob, rng.uniform(0, 1.8, 30000)]),
                           rng.uniform(0, 30, (20000, 3))])
     buf, m = padded(pts, 65536, rng.rand(len(pts)) < 0.5)
-    out.append(("scattered mask", buf, m, 0.3, 5, 100, 100, 32))
-    return out
+    yield ("scattered mask", buf, m, 0.3, 5, 100, 100, 32)
+
+    yield from column_occupancy_cases()
 
 
 def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
@@ -545,7 +565,7 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     placed = ss >= 0
     n_occ = int(placed.sum())
 
-    nb_args = (tab, ss, py, cap, eps)
+    nb_args = (tab, ss, cell_start, py, cap, eps)
     counts = C.column_counts(*nb_args)
     same("column_counts", counts, C.column_counts_reference(*nb_args))
     core = placed & (counts >= min_samples)
@@ -569,6 +589,16 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     same("propagate", graph_lab, lab_ref)
     bmin = C.border_min(*nb_args, lab)
     same("border_min", bmin, C.border_min_reference(*nb_args, lab))
+    # nor does the scan: a CUDA graph captures both modes, and a replay
+    # gives the same values
+    for kernel, scan, want in (
+            ("column_counts", lambda: C.column_counts(*nb_args), counts),
+            ("border_min", lambda: C.border_min(*nb_args, lab), bmin)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = scan()
+        graph.replay()
+        same(kernel, replayed, want)
     final = torch.where(core, lab, bmin)
     got = C.table_gather(final, pst, C.INT_MAX)
     same("table_gather", got, C.table_gather_reference(final, pst,
@@ -609,7 +639,8 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     win = window(occ)
 
     def slots_read(threads):
-        """Slots a scan must read once: in every column next to a column
+        """Slots a walk of the table must read once when it knows a
+        column's length only by reading it: in every column next to a column
         with threads, its occupied slots and, unless full, the empty slot
         that ends them."""
         visited = window(threads) > 0
@@ -629,10 +660,12 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
                        + 8 * n, 0),
         # point_stream read, the placed points' values, out written
         "table_gather": (4 * n + 4 * n_occ + 4 * n, 0),
-        # stream_slot, the scanned slots, out
-        "column_counts": (4 * n + 16 * scan + 4 * n, 9 * pairs),
+        # the occupied slots (each column's occupancy from cell_start, so
+        # no end marker and no stream_slot), cell_start, out
+        "column_counts": (16 * n_occ + 4 * (ncells + 1) + 4 * n, 9 * pairs),
         # and the placed points' labels
-        "border_min": (4 * n + 16 * scan + 4 * n_occ + 4 * n, 9 * pairs),
+        "border_min": (16 * n_occ + 4 * (ncells + 1) + 4 * n_occ + 4 * n,
+                       9 * pairs),
         # the function, whatever the design: stream_slot, the placed
         # points' labels and the slots the core points scan read once, each
         # label that changes written once; a pair test per core point and
@@ -640,9 +673,16 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
         "propagate": (4 * n + 4 * n_occ + 16 * core_scan + 4 * n_changed,
                       9 * core_pairs),
     }
+    # the scans' bound for a walk of the table (each column read to its end
+    # marker, stream_slot read), as the scan's first design worked: the
+    # yardstick that design and this one were compared on
+    walked = {"column_counts": (4 * n + 16 * scan + 4 * n, 9 * pairs),
+              "border_min": (4 * n + 16 * scan + 4 * n_occ + 4 * n,
+                             9 * pairs)}
     print(f"columns {name}: {pairs} pair tests per neighbourhood pass, "
-          f"{core_pairs} from core points; {scan} slots scanned, "
-          f"{core_scan} by core points; {n_changed} labels changed")
+          f"{core_pairs} from core points; {n_occ} occupied slots, {scan} "
+          f"slots and end markers walked, {core_scan} by core points; "
+          f"{n_changed} labels changed")
     calls = {
         "table_fill": (lambda: C.table_fill(*fill_args),
                        lambda: C.table_fill_reference(*fill_args)),
@@ -663,25 +703,45 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     }
     times = {}
     for kernel, (fast, plain) in calls.items():
-        ms, plain_ms = cuda_ms(fast), cuda_ms(plain, iters=5)
+        ms, dev_ms = cuda_ms(fast), graph_ms(fast)
+        plain_ms = cuda_ms(plain, iters=5)
         b_ms, b_by = bound(*work[kernel])
-        times[kernel] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                         "bound_by": b_by}
-        print(f"{kernel} at the {name}: kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+        times[kernel] = {"ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by}
+        print(f"{kernel} at the {name}: kernel {ms:.6f} ms, {dev_ms:.6f} ms "
+              f"from a CUDA graph, plain {plain_ms:.6f} ms, bound "
+              f"{b_ms:.6f} ms ({b_by})")
+        if kernel in walked:
+            w_ms, w_by = bound(*walked[kernel])
+            times[kernel]["walked_bound_ms"] = w_ms
+            print(f"{kernel} at the {name}: bound of a walk to each "
+                  f"column's end marker {w_ms:.6f} ms ({w_by})")
     return {"errs": errs, "times": times}
 
 
 def run_column_checks(dev) -> dict:
-    """Every case; the times of the 1M-point scan's."""
+    """Every case; the times of the three scans', the 1M-point scan's as
+    the record."""
     errs = {k: 0 for k in COLUMN_KERNELS}
-    times = None
+    times = {}
+    scans = {name for _, name in COLUMN_SCANS}
     for name, *args in column_cases():
-        res = check_column_case(dev, name, *args, timed=name == "1M scan")
+        res = check_column_case(dev, name, *args, timed=name in scans)
         for k, e in res["errs"].items():
             errs[k] = max(errs[k], e)
-        times = res.get("times", times)
-    return {"errs": errs, "times": times}
+        if "times" in res:
+            times[name] = res["times"]
+    for kernel in COLUMN_KERNELS:
+        print(f"{kernel}, ms / graph ms / bound ms: " + "; ".join(
+            f"{name} {t[kernel]['ms']:.6f} / {t[kernel]['graph_ms']:.6f} / "
+            f"{t[kernel]['bound_ms']:.6f}" for name, t in times.items()))
+        if "walked_bound_ms" in times["1M scan"][kernel]:
+            print(f"{kernel}, walked bound ms: " + "; ".join(
+                f"{name} {t[kernel]['walked_bound_ms']:.6f}"
+                for name, t in times.items()))
+    record = {k: {f: v for f, v in t.items() if f != "walked_bound_ms"}
+              for k, t in times["1M scan"].items()}
+    return {"errs": errs, "times": record}
 
 
 # ---------------------------------------------------------------------------
@@ -857,15 +917,17 @@ def run_place_checks(dev, points, labels, k: int) -> dict:
         return buf.index_copy_(1, spill, src)
 
     lib_ms = cuda_ms(library)
+    dev_ms = graph_ms(lambda: place.place_dense(ids, valid, chans, k))
     # ids and valid read once, the channels at the valid rows, every slot
     # of the (C + 1, K') result written once; no arithmetic
     b_ms, b_by = bound(5 * n + 4 * nch * n_valid + 4 * (nch + 1) * kp, 0)
     print(f"place_dense at the 3M scan's stream ({n} rows, {n_valid} valid, "
-          f"{nch} channels, K' {kp}): kernel {ms:.6f} ms, plain "
-          f"{plain:.6f} ms, index_copy_ {lib_ms:.6f} ms, bound {b_ms:.6f} "
-          f"ms ({b_by})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+          f"{nch} channels, K' {kp}): kernel {ms:.6f} ms, {dev_ms:.6f} ms "
+          f"from a CUDA graph, plain {plain:.6f} ms, index_copy_ "
+          f"{lib_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    return {"max_abs_err": max_err, "ms": ms, "graph_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1067,16 +1129,18 @@ def run_fps_checks(dev, layer_points) -> dict:
     out = {}
     ms = cuda_ms(lambda: P.fps_single(layer_points, ones, 4096), iters=3,
                  warm=1)
+    dev_ms = graph_ms(lambda: P.fps_single(layer_points, ones, 4096),
+                      iters=2, reps=1)
     plain = cuda_ms(lambda: P.fps_reference(layer_points, ones, 4096),
                     iters=1, warm=1)
     b_ms, b_by = fps_bound(1, n_layer, 4096)
     print(f"fps_single {n_layer} -> 4096 (a cluster of {plan.cluster}): "
-          f"kernel {ms:.6f} ms, plain {plain:.6f} ms, bound {b_ms:.6f} ms "
-          f"({b_by}); the 4,095 steps depend on each other, "
-          f"{ms / 4095 * 1e3:.3f} us a step")
+          f"kernel {ms:.6f} ms, {dev_ms:.6f} ms from a CUDA graph, plain "
+          f"{plain:.6f} ms, bound {b_ms:.6f} ms ({b_by}); the 4,095 steps "
+          f"depend on each other, {ms / 4095 * 1e3:.3f} us a step")
     out["fps_single"] = {"max_abs_err": errs["fps_single"], "ms": ms,
-                         "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by}
+                         "graph_ms": dev_ms, "plain_ms": plain,
+                         "bound_ms": b_ms, "bound_by": b_by}
     ms = cuda_ms(lambda: P.fps_single(big, big_ones, 256), iters=3, warm=1)
     print(f"fps_single {n_big} -> 256 (streaming): kernel {ms:.6f} ms, "
           f"{ms / 255 * 1e3:.3f} us a step")
@@ -1099,16 +1163,20 @@ def run_fps_checks(dev, layer_points) -> dict:
               f"{plain:.6f} ms, bound {b_ms:.6f} ms ({b_by}); "
               f"{ms / (m - 1) * 1e3:.3f} us a step")
         if b == 1:
-            served.append((ms, plain, b_ms, b_by))
+            served.append((ms, dev_ms, plain, b_ms, b_by))
     # per launch, the mean over a served forward's two launches, so that
     # launches x (ms - bound_ms) is the forward's loss
-    out["fps_batched"] = {
-        "max_abs_err": errs["fps_batched"],
-        "ms": statistics.mean(s[0] for s in served),
-        "plain_ms": statistics.mean(s[1] for s in served),
-        "bound_ms": statistics.mean(s[2] for s in served),
-        "bound_by": served[0][3]}
+    out["fps_batched"] = {"max_abs_err": errs["fps_batched"],
+                          **served_mean(served)}
     return out
+
+
+def served_mean(served) -> dict:
+    """A kernel's record from (ms, graph ms, plain ms, bound ms, bound by)
+    at a served forward's two launch shapes: the mean of each time."""
+    return {key: statistics.mean(s[i] for s in served) for i, key in
+            enumerate(("ms", "graph_ms", "plain_ms", "bound_ms"))} | {
+                "bound_by": served[0][4]}
 
 
 SA_SHAPES = (("served SA1", 512, 3, (32, 32, 64)),
@@ -1195,22 +1263,20 @@ def run_sa_checks(dev) -> dict:
             peak = BF16_OPS_PER_S if dtype == torch.bfloat16 \
                 else FP32_OPS_PER_S
             ms = cuda_ms(lambda: P.sa_mlp_pool(g, v, w, compute_dtype=dtype))
+            dev_ms = graph_ms(lambda: P.sa_mlp_pool(g, v, w,
+                                                    compute_dtype=dtype))
             plain = cuda_ms(lambda: P.sa_mlp_pool_reference(g, v, w, dtype),
                             iters=5)
             b_ms, b_by = bound(nbytes, ops, peak)
             print(f"sa_mlp_pool at the {name} ({m} x 32 x {cin} -> "
                   f"{hidden[-1]}, {str(dtype).split('.')[1]}): kernel "
-                  f"{ms:.6f} ms, plain {plain:.6f} ms, bound {b_ms:.6f} ms "
-                  f"({b_by})")
+                  f"{ms:.6f} ms, {dev_ms:.6f} ms from a CUDA graph, plain "
+                  f"{plain:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
             if name.startswith("served"):
-                served.append((ms, plain, b_ms, b_by))
+                served.append((ms, dev_ms, plain, b_ms, b_by))
     # float32, what the served model runs; per launch, the mean over a
     # served forward's two launches
-    return {"max_abs_err": abs_err,
-            "ms": statistics.mean(s[0] for s in served),
-            "plain_ms": statistics.mean(s[1] for s in served),
-            "bound_ms": statistics.mean(s[2] for s in served),
-            "bound_by": served[0][3]}
+    return {"max_abs_err": abs_err, **served_mean(served)}
 
 
 # ---------------------------------------------------------------------------
@@ -1530,7 +1596,13 @@ def main() -> int:
           f"({kernels.library_path().name})")
     log = kernels.library_path().with_suffix(".log")
     if log.exists():
-        print(log.read_text().strip())
+        report = log.read_text().strip()
+        print(report)
+        spills = [ln.strip() for ln in report.splitlines() if "spill" in ln]
+        require(len(spills) >= len(KERNELS) and all(
+            "0 bytes spill stores, 0 bytes spill loads" in ln
+            for ln in spills), "a kernel spills registers")
+        print(f"ptxas: {len(spills)} kernel bodies, 0 bytes of spill")
 
     phase("radius_count kernel against its plain version")
     radius = run_radius_checks(dev)
@@ -1642,7 +1714,7 @@ def main() -> int:
                     replaces=KERNELS["radius_count"][1],
                     launches=radius["launches"],
                     max_abs_err=radius["max_abs_err"], ms=radius["ms"],
-                    plain_ms=radius["plain_ms"],
+                    graph_ms=radius["graph_ms"], plain_ms=radius["plain_ms"],
                     bound_ms=radius["bound_ms"],
                     bound_by=radius["bound_by"], library_ms=None)]
     for k in COLUMN_KERNELS:
@@ -1666,6 +1738,8 @@ def main() -> int:
                             replaces=KERNELS[k][1], launches=launches[k],
                             **rec))
     require([r["name"] for r in records] == list(KERNELS), "kernel records")
+    require(all(r["graph_ms"] > 0 for r in records),
+            "every kernel timed from a CUDA graph")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ the same clusters as its ``ops/clustering.py`` (``dbscan_columns``):
      first stream position by a binary search, the fill kernel), so every
      eps-neighbour of a point lies in the 3x3 columns around it;
   2. core points have at least ``min_samples`` eps-neighbours, self
-     included (the count kernel);
+     included (the count kernel, which, like the border-min kernel, reads
+     each column's occupancy from ``cell_start``);
   3. every core point takes the smallest point index of its core-core
      eps component (the propagation: one union-find pass on the card,
      sweeps to the fixpoint on the CPU);
@@ -51,6 +52,8 @@ class ColumnTable:
     order: torch.Tensor         # (N,) int32 point at each stream position
     point_stream: torch.Tensor  # (N,) int32 stream position of each point
     stream_slot: torch.Tensor   # (N,) int32 slot of each stream position
+    cell_start: torch.Tensor    # (ncells + 1,) int32 each column's first
+    #                             stream position
     py: int                     # columns along y, borders included
     cap: int                    # slots per column
     overflow: torch.Tensor      # () int32 valid points dropped by the cap
@@ -115,8 +118,8 @@ def build_table(points: torch.Tensor, mask: torch.Tensor, min_cell: float,
     table, point_stream, stream_slot, overflow = columns.table_fill(
         points.contiguous(), order, scid, cell_start, ncells, cap)
     return ColumnTable(table=table, order=order, point_stream=point_stream,
-                       stream_slot=stream_slot, py=py, cap=cap,
-                       overflow=overflow)
+                       stream_slot=stream_slot, cell_start=cell_start, py=py,
+                       cap=cap, overflow=overflow)
 
 
 def dense_ids(labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,7 +148,7 @@ def dbscan_gs(points: torch.Tensor, mask: torch.Tensor, eps: float,
     sweeps and raises if they do not reach its fixpoint; on the card it is
     one union-find pass with no read back to the host."""
     t = build_table(points, mask, eps, ncx, ncy, column_cap)
-    nb = (t.table, t.stream_slot, t.py, t.cap, eps)
+    nb = (t.table, t.stream_slot, t.cell_start, t.py, t.cap, eps)
     counts = columns.column_counts(*nb)
     core = (t.stream_slot >= 0) & (counts >= min_samples)
     labels = torch.where(core, t.order, INT_MAX)

@@ -22,7 +22,9 @@ table: ``stream_slot`` (the slot of each stream position) and
 no slot (masked, or past its column's cap).
 
 Per-point values of the neighbourhood kernels (counts, labels, border
-minimum) are (N,) arrays in stream order.
+minimum) are (N,) arrays in stream order. The count and the border
+minimum scan a tile of columns a block, by ``neighbour_plan``; they read a
+column's occupancy from ``cell_start`` and its slots from the table.
 
 As in ``kernels.py``: a CPU tensor takes the plain version, a CUDA tensor
 the kernel (or an error); each launch adds one to ``LAUNCHES``. The plain
@@ -33,14 +35,15 @@ same squared distances the kernels do (``dx = neighbour - centre``,
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
-    LAUNCHES, PAIRS_PER_CHUNK, _check, _cuda_device, _raise_on, _stream,
-    load_library)
+    LAUNCHES, PAIRS_PER_CHUNK, SMEM_PER_BLOCK, _check, _cuda_device,
+    _raise_on, _stream, load_library)
 
 EMPTY_COORD = 1.0e18   # (1e18)^2 is finite in float32 and always > r^2
 INT_MAX = 2 ** 31 - 1
@@ -194,8 +197,11 @@ def _neighbour_chunks(table: torch.Tensor, stream_slot: torch.Tensor,
 
 
 def column_counts_reference(table: torch.Tensor, stream_slot: torch.Tensor,
-                            py: int, cap: int, eps: float) -> torch.Tensor:
-    """Plain version of ``column_counts``."""
+                            cell_start: torch.Tensor, py: int, cap: int,
+                            eps: float) -> torch.Tensor:
+    """Plain version of ``column_counts``. It finds the placed points and
+    their neighbours from ``stream_slot`` and the table, and does not read
+    ``cell_start``."""
     out = torch.zeros(stream_slot.shape[0], dtype=torch.int32,
                       device=table.device)
     for ks, _, hit in _neighbour_chunks(table, stream_slot, py, cap, eps):
@@ -213,28 +219,103 @@ def _neighbour_args(name, table, stream_slot, labels=None):
     return dev, n
 
 
-def column_counts(table: torch.Tensor, stream_slot: torch.Tensor, py: int,
-                  cap: int, eps: float) -> torch.Tensor:
-    """Per stream position, the number of points within ``eps`` over the
-    3x3 neighbouring columns, self included: (N,) int32, 0 where the point
-    has no slot."""
-    if table.device.type == "cpu":
-        return column_counts_reference(table, stream_slot, py, cap, eps)
-    dev, n = _neighbour_args("column_counts", table, stream_slot)
-    fn = load_library().column_counts_launch
+# The layout of the count and border-minimum scan in
+# csrc/column_neighbours.cu, whose entry points derive the same plan from
+# the shapes (and refuse a cap whose window cannot fit shared memory):
+NEIGHBOUR_THREADS = 256
+NEIGHBOUR_TILE_COLS = 256     # centre columns a block takes along y
+NEIGHBOUR_WINDOW = 1024       # the least slots a block's window holds
+# int32 words a block keeps beside the window: cell_start of the three
+# rows and two prefix sums, each over the tile's staged columns and the end
+# of the last, the prefix sums' warp totals, the masked tail's start
+NEIGHBOUR_BLOCK_WORDS = 5 * (NEIGHBOUR_TILE_COLS + 3) + 2 * (
+    NEIGHBOUR_THREADS // 32) + 1
+NEIGHBOUR_SLOT_BYTES = 18     # a window slot's 16 bytes, a centre's column 2
+
+
+@dataclasses.dataclass(frozen=True)
+class NeighbourPlan:
+    """How the scan covers a grid of ``ncx`` x ``ncy`` columns: block b
+    takes padded x row ``1 + b // tiles_per_row`` and its columns of padded
+    y ``1 + t * NEIGHBOUR_TILE_COLS`` up to ``NEIGHBOUR_TILE_COLS`` of them
+    (``t = b % tiles_per_row``; fewer at the row's end), and stages the
+    occupied slots of the three rows around it over those columns and one
+    more on each side, as many sub-tiles of at most ``window`` slots as
+    they need, in ``smem_bytes`` of shared memory."""
+
+    tiles_per_row: int
+    blocks: int
+    window: int
+    smem_bytes: int
+
+
+def neighbour_plan(ncx: int, ncy: int, cap: int, n: int) -> NeighbourPlan:
+    """The scan's launch plan as the kernel's entry points derive it, from
+    the shapes alone: ``ncx`` x ``ncy`` interior columns of ``cap`` slots,
+    ``n`` stream positions. No stream
+    (``n`` 0): no block. Raises ValueError where the cap is too large for
+    one column's nine neighbouring columns to fit a block's shared
+    memory."""
+    window = max(NEIGHBOUR_WINDOW, 9 * cap)
+    smem = window * NEIGHBOUR_SLOT_BYTES + 4 * NEIGHBOUR_BLOCK_WORDS
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"a column cap of {cap} needs a window of {window} slots, "
+            f"{smem} bytes of shared memory, past the {SMEM_PER_BLOCK} a "
+            f"block may use")
+    tiles = -(-ncy // NEIGHBOUR_TILE_COLS)
+    return NeighbourPlan(tiles, ncx * tiles if n > 0 else 0, window, smem)
+
+
+def _scan(name: str, table: torch.Tensor, stream_slot: torch.Tensor,
+          cell_start: torch.Tensor, py: int, cap: int, eps: float,
+          labels: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the scan of ``csrc/column_neighbours.cu`` as ``name``
+    (``column_counts`` or ``border_min``)."""
+    dev, n = _neighbour_args(name, table, stream_slot, labels)
+    ncells = cell_start.shape[0] - 1
+    _check("cell_start", cell_start, torch.int32, (ncells + 1,), dev)
+    if ncells % py or table.shape[0] != ncells * cap:
+        raise ValueError(
+            f"cell_start's {ncells} columns and the table's "
+            f"{table.shape[0]} slots are not a grid of rows of {py} columns "
+            f"of {cap} slots")
+    if table.data_ptr() % 16:
+        raise ValueError("table must be 16-byte aligned (float4 slots)")
+    ncx = ncells // py - 2
+    plan = neighbour_plan(ncx, py - 2, cap, n)
+    fn = getattr(load_library(), f"{name}_launch")
     with torch.cuda.device(dev):
         out = torch.empty(n, dtype=torch.int32, device=dev)
-        err = fn(table.data_ptr(), stream_slot.data_ptr(), n, py, cap,
-                 float(eps_sq(eps)), out.data_ptr(), _stream(dev))
-        LAUNCHES["column_counts"] += 1
-    _raise_on(err, "column_counts")
+        err = fn(table.data_ptr(), cell_start.data_ptr(), n, ncx, py, cap,
+                 float(eps_sq(eps)),
+                 None if labels is None else labels.data_ptr(),
+                 out.data_ptr(), _stream(dev))
+        if plan.blocks:
+            LAUNCHES[name] += 1
+    _raise_on(err, name)
     return out
 
 
+def column_counts(table: torch.Tensor, stream_slot: torch.Tensor,
+                  cell_start: torch.Tensor, py: int, cap: int,
+                  eps: float) -> torch.Tensor:
+    """Per stream position, the number of points within ``eps`` over the
+    3x3 neighbouring columns, self included: (N,) int32, 0 where the point
+    has no slot. ``cell_start`` (ncells + 1,) int32: each column's first
+    stream position."""
+    if table.device.type == "cpu":
+        return column_counts_reference(table, stream_slot, cell_start, py,
+                                       cap, eps)
+    return _scan("column_counts", table, stream_slot, cell_start, py, cap,
+                 eps, None)
+
+
 def border_min_reference(table: torch.Tensor, stream_slot: torch.Tensor,
-                         py: int, cap: int, eps: float, labels: torch.Tensor
-                         ) -> torch.Tensor:
-    """Plain version of ``border_min``."""
+                         cell_start: torch.Tensor, py: int, cap: int,
+                         eps: float, labels: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``border_min``; like ``column_counts_reference``,
+    it does not read ``cell_start``."""
     out = torch.full((stream_slot.shape[0],), INT_MAX, dtype=torch.int32,
                      device=table.device)
     for ks, nk, hit in _neighbour_chunks(table, stream_slot, py, cap, eps):
@@ -242,24 +323,18 @@ def border_min_reference(table: torch.Tensor, stream_slot: torch.Tensor,
     return out
 
 
-def border_min(table: torch.Tensor, stream_slot: torch.Tensor, py: int,
-               cap: int, eps: float, labels: torch.Tensor) -> torch.Tensor:
+def border_min(table: torch.Tensor, stream_slot: torch.Tensor,
+               cell_start: torch.Tensor, py: int, cap: int, eps: float,
+               labels: torch.Tensor) -> torch.Tensor:
     """Per stream position, the smallest of ``labels`` (N,) int32 (stream
     order) over its eps-neighbours, self included: (N,) int32, INT_MAX
     where the point has no slot. With labels INT_MAX at non-core points, a
     border point's value is its smallest adjacent core label."""
     if table.device.type == "cpu":
-        return border_min_reference(table, stream_slot, py, cap, eps, labels)
-    dev, n = _neighbour_args("border_min", table, stream_slot, labels)
-    fn = load_library().border_min_launch
-    with torch.cuda.device(dev):
-        out = torch.empty(n, dtype=torch.int32, device=dev)
-        err = fn(table.data_ptr(), stream_slot.data_ptr(), n, py, cap,
-                 float(eps_sq(eps)), labels.data_ptr(), out.data_ptr(),
-                 _stream(dev))
-        LAUNCHES["border_min"] += 1
-    _raise_on(err, "border_min")
-    return out
+        return border_min_reference(table, stream_slot, cell_start, py, cap,
+                                    eps, labels)
+    return _scan("border_min", table, stream_slot, cell_start, py, cap, eps,
+                 labels)
 
 
 def _not_converged(max_sweeps: int) -> RuntimeError:

@@ -55,14 +55,17 @@ _SIGNATURES = {
     "radius_count_launch": [_P, _P, _P, _F] + [_I] * 5 + [_P, _P],
     "table_fill_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "table_gather_launch": [_P, _P, _I, _I, _P, _P],
-    "column_counts_launch": [_P, _P, _I, _I, _I, _F, _P, _P],
-    "border_min_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
+    "column_counts_launch": [_P, _P] + [_I] * 4 + [_F, _P, _P, _P],
+    "border_min_launch": [_P, _P] + [_I] * 4 + [_F, _P, _P, _P],
     "propagate_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],
     "place_dense_launch": [_P, _P, _P, _I, _I, _I, _P, _P],
     "fps_max_active_clusters": [_I, _I, _I],
     "fps_launch": [_P, _P, _P] + [_I] * 9 + [_P, _P],
     "sa_mlp_pool_launch": [_P] * 8 + [_I] * 7 + [_P, _P],
 }
+
+# the most shared memory a block of sm_90 may use
+SMEM_PER_BLOCK = 232_448
 
 # Pair tests per chunk of the plain all-pairs passes, here and in
 # ``ops/clustering.py`` (bounds their temporaries at a few hundred MB).

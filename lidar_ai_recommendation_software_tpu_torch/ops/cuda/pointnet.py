@@ -22,14 +22,13 @@ from typing import Sequence, Tuple
 import torch
 
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
-    FPS_ROUTES, LAUNCHES, _check, _cuda_device, _raise_on, _stream,
-    load_library)
+    FPS_ROUTES, LAUNCHES, SMEM_PER_BLOCK, _check, _cuda_device, _raise_on,
+    _stream, load_library)
 
 _BIG = 3.4e38  # the distance cache starts here; masked points rank at -_BIG
 
 # The layout of csrc/fps.cu, which the plan mirrors (the kernel's entry
 # point refuses a plan that gives a block less shared memory than it uses):
-SMEM_PER_BLOCK = 232_448        # the most a block of sm_90 may use
 BLOCK_THREADS = 1024            # the shared-memory and cluster bodies
 BLOCK_STATIC_BYTES = 512        # the one-block body's warp results
 BLOCK_SMEM_BUDGET = SMEM_PER_BLOCK - BLOCK_STATIC_BYTES

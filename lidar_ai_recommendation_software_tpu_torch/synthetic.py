@@ -127,3 +127,59 @@ def scaled_venue(n_points: int, seed: int = 42,
         n_points=n_points, n_people=n_people, extent=extent,
         people_extent=max(1.0, extent - 5.0), seed=seed,
     )
+
+
+def lattice_points(counts: np.ndarray, cell: float,
+                   seed: int) -> np.ndarray:
+    """``counts[i, j]`` points jittered inside column (i, j) of a grid of
+    ``cell``-wide columns, and one more at the origin, in column (0, 0),
+    which pins a clustering grid of ``cell``-wide columns there: (P, 3)
+    float32. Column occupancies made to order."""
+    rng = np.random.RandomState(seed)
+    i, j = np.nonzero(counts)
+    reps = counts[i, j]
+    ci, cj = np.repeat(i, reps), np.repeat(j, reps)
+    jitter = rng.uniform(0.05, 0.95, (len(ci), 2))
+    pts = np.column_stack([(ci + jitter[:, 0]) * cell,
+                           (cj + jitter[:, 1]) * cell,
+                           rng.uniform(0.0, 0.2, len(ci))])
+    return np.concatenate([pts, [[0.0, 0.0, 0.0]]]).astype(np.float32)
+
+
+def column_occupancy_cases():
+    """Clouds whose column occupancies stress the column-grid clustering's
+    tiled scan, at eps = 0.3 m (the columns' width): a list of (name,
+    points (N, 3) float32, mask (N,), eps, min_samples, ncx, ncy, column
+    cap), each cloud followed by masked points up to its buffer size."""
+
+    def case(name, counts, buffer, min_samples, cap, seed):
+        pts = lattice_points(counts, 0.3, seed)
+        buf = np.zeros((buffer, 3), np.float32)
+        buf[:len(pts)] = pts
+        return (name, buf, np.arange(buffer) < len(pts), 0.3, min_samples,
+                *counts.shape, cap)
+
+    rng = np.random.RandomState(1)
+    # 300 columns along y, so each x row's run of the stream ends inside a
+    # row tile of 256 columns and the next row's starts: points in the
+    # first, the last and the tile boundary's columns of every row
+    ends = np.zeros((12, 300), np.int64)
+    for j in (0, 1, 2, 254, 255, 256, 257, 297, 298, 299):
+        ends[:, j] = rng.randint(1, 7, 12)
+    # x rows 1 and 3 every column at its cap of 64, row 2 between them
+    # sparse: the largest staging window a row tile can meet
+    sparse = np.zeros((5, 300), np.int64)
+    sparse[1] = sparse[3] = 64
+    sparse[2, ::7] = 1
+    # every column at its cap of 16 (the origin's point completes column
+    # (0, 0))
+    full = np.full((40, 40), 16, np.int64)
+    full[0, 0] = 15
+    # the pipeline's largest cap, 512: a window of 9 x 512 slots, past the
+    # 48 KB a block gets without asking
+    deep = rng.randint(0, 200, (6, 6))
+    deep[2, 3] = deep[4, 1] = 512
+    return [case("runs across x rows", ends, 8192, 3, 8, 2),
+            case("sparse row between full rows", sparse, 40_960, 5, 64, 3),
+            case("every column full", full, 25_600, 5, 16, 4),
+            case("a cap of 512", deep, 16_384, 5, 512, 5)]

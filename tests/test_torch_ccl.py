@@ -167,7 +167,8 @@ def test_gather_matches_extract_stream(both):
 
 def test_counts_match_column_counts_planes(both):
     pts, mask, j, t = both
-    counts = C.column_counts(t.table, t.stream_slot, t.py, t.cap, EPS)
+    counts = C.column_counts(t.table, t.stream_slot, t.cell_start, t.py,
+                              t.cap, EPS)
     want, has = _jax_per_point(j["planes"], j["counts"], len(pts))
     got = _port_per_point(t, counts.numpy())
     np.testing.assert_array_equal(got[has], want[has])
@@ -187,7 +188,8 @@ def test_eps_squared_rounds_like_the_ccl_kernels():
 def _initial_labels(t):
     """Stream-order labels before the propagation: a core point's index,
     INT_MAX elsewhere."""
-    counts = C.column_counts(t.table, t.stream_slot, t.py, t.cap, EPS)
+    counts = C.column_counts(t.table, t.stream_slot, t.cell_start, t.py,
+                              t.cap, EPS)
     core = (t.stream_slot >= 0) & (counts >= MIN_SAMPLES)
     return torch.where(core, t.order, INT_MAX)
 
@@ -226,7 +228,8 @@ def test_border_min_matches_border_min_planes(both):
     pst = t.point_stream
     jl, has = _jax_per_point(j["planes"], j["labels"], len(pts))
     labels[pst[torch.from_numpy(has)].long()] = torch.from_numpy(jl[has])
-    got = C.border_min(t.table, t.stream_slot, t.py, t.cap, EPS, labels)
+    got = C.border_min(t.table, t.stream_slot, t.cell_start, t.py, t.cap,
+                       EPS, labels)
     want, _ = _jax_per_point(j["planes"], j["border"], len(pts))
     got = _port_per_point(t, got.numpy())
     np.testing.assert_array_equal(got[has], want[has])

@@ -31,6 +31,8 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda import place
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
     pointnet as P)
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+    column_occupancy_cases)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -103,6 +105,10 @@ COLUMN_CASES = {
                                 32, 32, 8),
     "empty": lambda: (*_blobs(2, 1024, 5.0, 0.1, 0.0), 0.3, 5, 16, 16, 8),
 }
+# the occupancies that stress the tiled scan: runs across x rows, a sparse
+# row between full rows, every column full, the largest cap
+COLUMN_CASES.update({case[0].replace(" ", "_"): lambda case=case: case[1:]
+                     for case in column_occupancy_cases()})
 
 
 @pytest.mark.parametrize("name", sorted(COLUMN_CASES))
@@ -119,7 +125,7 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     assert torch.equal(tab.view(torch.int32), want[0].view(torch.int32))
     for got, ref in zip((pst, ss, ov), want[1:]):
         assert torch.equal(got, ref)
-    nb = (tab, ss, py, cap, eps)
+    nb = (tab, ss, cell_start, py, cap, eps)
     counts = C.column_counts(*nb)
     assert torch.equal(counts, C.column_counts_reference(*nb))
     core = (ss >= 0) & (counts >= ms)
@@ -138,6 +144,9 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     for k in ("table_fill", "column_counts", "border_min", "table_gather"):
         assert kernels.LAUNCHES[k] == 1, k
     assert (int(ov) > 0) == (name == "column_overflow")
+    if name == "every_column_full":
+        occ = torch.bincount(ss.long() // cap, minlength=ncells)
+        assert int((occ == cap).sum()) == ncx * ncy
 
 
 def test_venue_scale_card_matches_cpu(cuda_device):
