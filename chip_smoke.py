@@ -27,8 +27,12 @@ Run from the root of a checkout. It
      from L2; bit-equal; masks, exact ties in one warp and across the
      cluster's slices, both sides of every register instantiation),
      ``sa_mlp_pool`` at the three shapes of the neural path in float32 and
-     bfloat16 (within the stated tolerances), and ``place_dense`` on the
-     3M-point scan's own stream and on edge cases (bit-equal);
+     bfloat16 (within the stated tolerances) and on the tiling's edges
+     (K 16, 48 and 128, M = 1, a centroid with only its last neighbour
+     valid; two runs bit-identical), and ``place_dense`` on the 3M-point
+     scan's own stream and on edge cases (bit-equal; a run of 1,000,000
+     invalid rows no slower than 1.5x a stream of short runs of the same
+     n);
   4. runs ``Pipeline(device="cuda").analyze`` on the seed-42 fixture
      (golden values, the kernel launched, a second run bit-identical, the
      modular variant equal to the CPU);
@@ -48,8 +52,8 @@ Run from the root of a checkout. It
      -> ``group_features`` -> ``sa_mlp_pool``), each against the port's CPU
      run;
   8. runs a 3,000,000-point scan, whose centroids take the ``place_dense``
-     route: the JAX package's recorded values, the centroids of the other
-     route on the same labels, a second run bit-identical;
+     route (one launch): the JAX package's recorded values, the centroids
+     of the other route on the same labels, a second run bit-identical;
   9. prints the warm wall time of ``analyze`` at every size.
 
 Each pipeline run resets the launch counts just before it and reads them
@@ -848,19 +852,56 @@ def traced(fn, what: str) -> tuple:
 # place_dense
 # ---------------------------------------------------------------------------
 
+def place_inputs(points, labels, k: int) -> tuple:
+    """What the centroid pack hands to ``place_dense`` for a clustering:
+    (ids (N,) int32, valid (N,) bool, channels (C, N) float32)."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops import clustering
+    seg = torch.where(labels >= 0, labels.to(torch.int64), k).clamp_max(k)
+    return clustering._segment_end_rows(points, seg, k)
+
+
+def place_needed_bytes(ids, valid, nch: int, kp: int) -> int:
+    """The bytes any ``place_dense`` must move: ``valid`` once, one 32-byte
+    sector for each distinct sector of ``ids`` and of each channel row that
+    holds a valid row, and the (C + 1, K') result once."""
+    import torch
+    n = ids.shape[0]
+    rows = valid.nonzero()[:, 0]
+    # ids, then channel c at element c * n of the (C, N) channels; sorted
+    # rows give sorted sectors
+    starts = [0] + [c * n for c in range(nch)]
+    sectors = sum(int(torch.unique_consecutive((s + rows) // 8).numel())
+                  for s in starts)
+    return n + 32 * sectors + 4 * (nch + 1) * kp
+
+
+def scan_3m_inputs(pipe) -> tuple:
+    """The 3,000,000-point scan's clustering on the card and what its
+    centroid pack hands to ``place_dense``: (ids, valid, channels, k)."""
+    from lidar_ai_recommendation_software_tpu_torch import scaled_venue
+    out = pipe.analyze(scaled_venue(3_000_000))
+    pro, k = out["processed"], out["people"].mask.shape[0]
+    return (*place_inputs(pro.points, pro.labels, k), k)
+
+
 def run_place_checks(dev, points, labels, k: int) -> dict:
     """``place_dense`` against its plain version, bit for bit: the centroid
     pack of a scan's own clustering (``points`` (N, 3), ``labels`` (N,) on
-    the card, ``k`` people slots), then the edge cases. Times and bound at
-    the scan's stream; ``library_ms`` is one ``index_copy_`` into a
-    (C + 1, K' + 1) buffer with a spill slot for the invalid rows."""
+    the card, ``k`` people slots), then the edge cases, with
+    ``synthetic.place_dense_cases`` (a run of 1,000,000 invalid rows,
+    whose time from a CUDA graph must stay within 1.5x of the short-run
+    stream of the same n; valid rows first and last in runs that cross
+    every tile; n = 0; C = 1 and 9). Times and bound at the scan's
+    stream; ``library_ms`` is one ``index_copy_`` into a (C + 1, K' + 1)
+    buffer with a spill slot for the invalid rows."""
     import numpy as np
     import torch
-    from lidar_ai_recommendation_software_tpu_torch.ops import clustering
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import place
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+        place_dense_cases)
 
-    seg = torch.where(labels >= 0, labels.to(torch.int64), k).clamp_max(k)
-    ids, valid, chans = clustering._segment_end_rows(points, seg, k)
+    ids, valid, chans = place_inputs(points, labels, k)
     n, kp = ids.shape[0], place.padded_slots(k)
     rng = np.random.RandomState(5)
 
@@ -880,8 +921,11 @@ def run_place_checks(dev, points, labels, k: int) -> dict:
         ("every slot hit", rows(np.arange(2048), np.ones(2048, bool), 7),
          2048),
         ("ids below 0 and past K'", rows(wild, last, 3), 1000),
-    ]
-    max_err = 0.0
+    ] + [(name, tuple(torch.from_numpy(x).to(dev) for x in arrays), kk)
+         for name, *arrays, kk in place_dense_cases()]
+    # the long run and the short runs of the same n, timed together
+    timed = {name for name, *_ in cases[4:6]}
+    max_err, runs = 0.0, {}
     for name, args, kk in cases:
         got = place.place_dense(*args, kk)
         want = place.place_dense_reference(*args, kk)
@@ -904,6 +948,13 @@ def run_place_checks(dev, points, labels, k: int) -> dict:
         if name == "ids below 0 and past K'":
             require(float(got[1][0]) == 1.0 and float(got[1][-1]) == 1.0,
                     "clipped ids land in the first and last slot")
+        if name in timed:
+            runs[name] = graph_ms(lambda: place.place_dense(*args, kk))
+    (long_name, long_ms), (short_name, short_ms) = runs.items()
+    print(f"place_dense, {long_name}: {long_ms:.6f} ms from a CUDA graph; "
+          f"{short_name}: {short_ms:.6f} ms ({long_ms / short_ms:.3f}x)")
+    require(long_ms <= 1.5 * short_ms, "place_dense's time grows with the "
+            "length of a run")
 
     nch, n_valid = chans.shape[0], int(valid.sum())
     ms = cuda_ms(lambda: place.place_dense(ids, valid, chans, k))
@@ -918,13 +969,20 @@ def run_place_checks(dev, points, labels, k: int) -> dict:
 
     lib_ms = cuda_ms(library)
     dev_ms = graph_ms(lambda: place.place_dense(ids, valid, chans, k))
-    # ids and valid read once, the channels at the valid rows, every slot
-    # of the (C + 1, K') result written once; no arithmetic
-    b_ms, b_by = bound(5 * n + 4 * nch * n_valid + 4 * (nch + 1) * kp, 0)
+    # valid read once, a 32-byte sector for each value of ids and of the
+    # channels at a valid row, the (C + 1, K') result written once; no
+    # arithmetic
+    b_ms, b_by = bound(place_needed_bytes(ids, valid, nch, kp), 0)
     print(f"place_dense at the 3M scan's stream ({n} rows, {n_valid} valid, "
           f"{nch} channels, K' {kp}): kernel {ms:.6f} ms, {dev_ms:.6f} ms "
           f"from a CUDA graph, plain {plain:.6f} ms, index_copy_ "
           f"{lib_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by})")
+    # the bound of the first design's yardstick: ids and valid whole, 4
+    # bytes a channel value at a valid row
+    print(f"place_dense at the 3M scan's stream, the bound that counts ids "
+          f"whole and 4 bytes a channel value: "
+          f"{bound(5 * n + 4 * nch * n_valid + 4 * (nch + 1) * kp, 0)[0]:.6f}"
+          f" ms")
     return {"max_abs_err": max_err, "ms": ms, "graph_ms": dev_ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": lib_ms}
@@ -1203,13 +1261,17 @@ def run_sa_checks(dev) -> dict:
     """``sa_mlp_pool`` against its plain version (library matrix products
     in full float32) at the shapes of the neural path, K = 32, in float32
     and with bfloat16 operands; a centroid with no valid neighbour; M not a
-    multiple of the tile. Times and bounds at the served model's two
-    shapes, whose mean is the kernel's record, and at the 100,000-point
-    layer."""
+    multiple of the tile; then ``synthetic.sa_mlp_pool_cases`` (K 16, 48
+    and 128, M = 1, Cin = 67, a centroid with only its last neighbour
+    valid), each run twice, bit-identical. Times and bounds at the served
+    model's two shapes, whose mean is the kernel's record, and at the
+    100,000-point layer."""
     import numpy as np
     import torch
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
         pointnet as P)
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+        sa_mlp_pool_cases)
 
     require(not torch.backends.cuda.matmul.allow_tf32,
             "the plain version's products must run in full float32")
@@ -1246,6 +1308,35 @@ def run_sa_checks(dev) -> dict:
                 require(float((got - f32).abs().max()) > 1e-6,
                         "bfloat16 operands must change the result")
         timed[name] = (g, v, w, m, cin, hidden)
+    for name, g_np, v_np, w_np in sa_mlp_pool_cases():
+        g, v = torch.from_numpy(g_np).to(dev), torch.from_numpy(v_np).to(dev)
+        w = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+             for a, b in w_np]
+        m = g.shape[0]
+        for dtype, tol in ((torch.float32, SA_F32_TOL),
+                           (torch.bfloat16, SA_BF16_TOL)):
+            got = P.sa_mlp_pool(g, v, w, compute_dtype=dtype)
+            again = P.sa_mlp_pool(g, v, w, compute_dtype=dtype)
+            want = P.sa_mlp_pool_reference(g, v, w, dtype)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            seen[dtype] = max(seen[dtype], err)
+            if dtype == torch.float32:
+                abs_err = max(abs_err, float((got - want).abs().max()))
+            plan = P.sa_plan(*g.shape, *(a.shape[1] for a, _ in w))
+            print(f"sa_mlp_pool {name} ({tuple(g.shape)} -> "
+                  f"{w[2][0].shape[1]}, {plan.tile} a tile, "
+                  f"{str(dtype).split('.')[1]}): max relative error "
+                  f"{err:.3e} (tolerance {tol})")
+            require(got.shape == want.shape and err <= tol,
+                    f"sa_mlp_pool off by {err}: {name}, {dtype}")
+            require(torch.equal(got, again),
+                    f"sa_mlp_pool: two runs differ: {name}, {dtype}")
+            require(m == 1 or not got[m // 2].any(),
+                    "a centroid with no valid neighbour pools to 0")
+            require(bool(want[0].any()) and rel_err(got[0], want[0]) <= tol,
+                    f"{name}: the centroid with only its last neighbour "
+                    f"valid")
     print(f"sa_mlp_pool: worst relative error seen {seen[torch.float32]:.3e} "
           f"in float32, {seen[torch.bfloat16]:.3e} with bfloat16 operands")
 
@@ -1539,8 +1630,10 @@ def run_scan_3m(pipe, ident: str) -> tuple:
     require(cap.max_points > clustering.SEGSUM_MAX_POINTS,
             "the scan's buffer must exceed the centroid route's switch")
     out, launches = traced(lambda: pipe.analyze(scan), "3,000,000-point")
-    for k in (*COLUMN_KERNELS, "place_dense"):
+    for k in COLUMN_KERNELS:
         require(launches[k] > 0, f"the 3M-point run did not launch {k}")
+    require(launches["place_dense"] == 1, f"the 3M-point run launched "
+            f"place_dense {launches['place_dense']} times, once expected")
     require_one_pass(launches, "the 3M-point run")
     check_jax_reference(out, JAX_REFERENCE_3M, "card, 3,000,000 points")
     pro, ppl = out["processed"], out["people"]

@@ -12,6 +12,7 @@ the kernel (or an error); a launch adds one to ``LAUNCHES``.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -20,6 +21,38 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
     LAUNCHES, _check, _cuda_device, _raise_on, _stream, load_library)
 
 LANES = 512  # slots are padded to a multiple of this, as in the JAX package
+
+# The layout of csrc/place_dense.cu, which the plan mirrors (its entry point
+# derives the same grid from the shapes and refuses what it refuses):
+PLACE_THREADS = 256
+PLACE_WARP_ROWS = 512           # rows a warp, 16 a lane
+PLACE_BLOCK_ROWS = PLACE_THREADS // 32 * PLACE_WARP_ROWS
+PLACE_ZERO_BLOCKS = 264         # the zero blocks stride: two an SM
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacePlan:
+    """How ``csrc/place_dense.cu`` covers n rows into (C + 1, K') slots in
+    one launch: its first ``zero_blocks`` blocks write the zeros with
+    16-byte stores, the next ``row_blocks`` take ``PLACE_BLOCK_ROWS`` rows
+    each (none for n = 0)."""
+
+    zero_blocks: int
+    row_blocks: int
+
+
+def place_plan(n: int, nch: int, kp: int) -> PlacePlan:
+    """The launch plan of ``place_dense`` for n rows, C = ``nch`` channels
+    and K' = ``kp`` slots, by the shapes alone. Raises ValueError where the
+    kernel refuses: n or C negative, K' not positive. (The kernel also
+    refuses a result that is not 16-byte aligned; the wrapper allocates
+    it.)"""
+    if n < 0 or nch < 0 or kp <= 0:
+        raise ValueError(f"place_dense takes n >= 0 rows, C >= 0 channels "
+                         f"and K' > 0 slots, got {n}, {nch}, {kp}")
+    quads = (nch + 1) * kp // 4
+    zero = min(PLACE_ZERO_BLOCKS, max(1, -(-quads // PLACE_THREADS)))
+    return PlacePlan(zero, -(-n // PLACE_BLOCK_ROWS))
 
 
 def padded_slots(k: int, lanes: int = LANES) -> int:
@@ -62,7 +95,8 @@ def place_dense(ids: torch.Tensor, valid: torch.Tensor, channels, k: int,
     are copied. Ids are clipped into [0, K' - 1] first, as the JAX function
     clips them, so a valid row with an id past the end lands in the last
     slot. At most one valid row may land in a slot; with more, which one
-    stays is not defined."""
+    stays is not defined. On the card: one kernel launch by
+    ``place_plan``, no read of the device."""
     ch = _channel_rows(channels)
     if ids.device.type == "cpu":
         return place_dense_reference(ids, valid, ch, k, lanes)
@@ -72,6 +106,7 @@ def place_dense(ids: torch.Tensor, valid: torch.Tensor, channels, k: int,
     _check("valid", valid, torch.bool, (n,), dev)
     _check("channels", ch, torch.float32, (nch, n), dev)
     kp = padded_slots(k, lanes)
+    place_plan(n, nch, kp)  # raises where the kernel refuses
     fn = load_library().place_dense_launch
     with torch.cuda.device(dev):
         out = torch.empty((nch + 1, kp), dtype=torch.float32, device=dev)

@@ -218,6 +218,63 @@ def fps(points: torch.Tensor, mask: torch.Tensor, n_samples: int,
 
 Weights = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 
+# The layout of csrc/sa_mlp_pool.cu, which the plan mirrors (the kernel's
+# entry point derives the same plan from the shapes and refuses what it
+# refuses):
+SA_THREADS = 256
+SA_PIECE = 32                   # rows of a warp item's piece, one a lane
+SA_MAX_ROWS = 128               # rows of a tile, and the largest K
+SA_SPLIT_BLOCKS = 1056          # past this many 32-row tiles, wide tiles
+SA_WIDE_ROWS = 2                # pieces a warp item takes in a wide tile
+
+
+@dataclasses.dataclass(frozen=True)
+class SaPlan:
+    """How ``csrc/sa_mlp_pool.cu`` covers M centroids: ``tile`` centroids
+    a block, ``blocks`` blocks of ``SA_THREADS`` threads, a warp item of
+    ``pieces`` 32-row pieces by 8 output columns, and ``smem_bytes`` of
+    shared memory a block (the weights, the biases, the tile's rows, where
+    layer 2 later writes, and layer 1's output)."""
+
+    tile: int
+    blocks: int
+    pieces: int
+    smem_bytes: int
+
+
+def _up4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def sa_plan(m: int, k: int, cin: int, h1: int, h2: int, cout: int
+            ) -> SaPlan:
+    """The launch plan of ``sa_mlp_pool`` for (M, K, Cin) rows and widths
+    H1, H2, Cout: tiles of 32 rows (one centroid at K >= 32) and warp items
+    of one piece; when that gives ``SA_SPLIT_BLOCKS`` blocks or more, tiles
+    of up to ``SA_MAX_ROWS`` rows and items of ``SA_WIDE_ROWS`` pieces.
+    Raises ValueError where the kernel refuses: K outside [1, 128], a width
+    that is not a positive multiple of 8 (or Cin < 1), or a layout past a
+    block's shared memory."""
+    if not 1 <= k <= SA_MAX_ROWS or cin < 1 or any(
+            h < 1 or h % 8 for h in (h1, h2, cout)):
+        raise ValueError(f"sa_mlp_pool kernel takes K <= {SA_MAX_ROWS} and "
+                         f"widths that are multiples of 8, got K = {k}, "
+                         f"Cin = {cin}, widths {[h1, h2, cout]}")
+    tile, pieces = (1 if k >= SA_PIECE else SA_PIECE // k), 1
+    if -(-m // tile) >= SA_SPLIT_BLOCKS:
+        tile, pieces = max(1, SA_MAX_ROWS // k), SA_WIDE_ROWS
+    rows = tile * k
+    floats = (_up4(cin * h1) + _up4(h1 * h2) + _up4(h2 * cout) + _up4(h1)
+              + _up4(h2) + _up4(cout) + _up4(rows * max(cin, h2 | 1))
+              + _up4(rows * (h1 | 1)))
+    if 4 * floats > SMEM_PER_BLOCK:
+        raise ValueError(f"sa_mlp_pool: a tile of {rows} rows at widths "
+                         f"{[cin, h1, h2, cout]} needs {4 * floats} bytes "
+                         f"of shared memory, past the {SMEM_PER_BLOCK} a "
+                         f"block may use")
+    return SaPlan(tile, -(-m // tile), pieces, 4 * floats)
+
 
 def _operand(x: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
     """``x`` as the products see it: rounded to ``compute_dtype`` (to
@@ -252,8 +309,9 @@ def sa_mlp_pool(grouped: torch.Tensor, valid: torch.Tensor, weights: Weights,
     centroid with no valid neighbour. ``compute_dtype`` float32 or bfloat16:
     with bfloat16 the operands of every product are rounded to it, the
     products and sums stay float32. The (M, K, hidden) activations never
-    reach device memory. The kernel takes K <= 128 and hidden widths that
-    are multiples of 8, and raises otherwise."""
+    reach device memory. The kernel takes what ``sa_plan`` takes (K <=
+    128, widths that are multiples of 8, a tile that fits a block's shared
+    memory) and raises otherwise."""
     if len(weights) != 3:
         raise ValueError("sa_mlp_pool is specialised to 3 MLP layers")
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -272,10 +330,7 @@ def sa_mlp_pool(grouped: torch.Tensor, valid: torch.Tensor, weights: Weights,
         _check(f"b{li + 1}", b, torch.float32, (w.shape[1],), dev)
         dims.append(w.shape[1])
         flat += [w.data_ptr(), b.data_ptr()]
-    if k > 128 or any(h % 8 for h in dims[1:]):
-        raise ValueError(f"sa_mlp_pool kernel takes K <= 128 and widths that "
-                         f"are multiples of 8, got K = {k}, widths "
-                         f"{dims[1:]}")
+    sa_plan(m, k, *dims)  # raises where the kernel refuses
     fn = load_library().sa_mlp_pool_launch
     with torch.cuda.device(dev):
         out = torch.empty((m, dims[3]), dtype=torch.float32, device=dev)

@@ -183,3 +183,89 @@ def column_occupancy_cases():
             case("sparse row between full rows", sparse, 40_960, 5, 64, 3),
             case("every column full", full, 25_600, 5, 16, 4),
             case("a cap of 512", deep, 16_384, 5, 512, 5)]
+
+
+def _place_case(name, run_lengths, valid_at, nch, k, seed):
+    """A ``place_dense`` stream of runs of equal ids: run r has
+    ``run_lengths[r]`` rows of id r, and its valid row, if any, at
+    ``valid_at[r]`` (-1: none)."""
+    rng = np.random.RandomState(seed)
+    lengths = np.asarray(run_lengths, np.int64)
+    ids = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    valid = np.zeros(len(ids), bool)
+    at = np.asarray(valid_at, np.int64)
+    valid[(starts + at)[at >= 0]] = True
+    # ids past the last slot clip into it: keep one valid row there
+    last = -(-max(k, 512) // 512) * 512 - 1
+    clipped = np.flatnonzero(valid & (ids >= last))
+    valid[clipped[:-1]] = False
+    chans = rng.uniform(-1e4, 1e4, (nch, len(ids))).astype(np.float32)
+    return name, ids, valid, chans, k
+
+
+def place_dense_cases():
+    """Streams that stress ``place_dense``'s tiling: a list of (name, ids
+    (n,) int32 non-decreasing, valid (n,) bool with at most one valid row a
+    slot, channels (C, n) float32, k). The first two have the same n and
+    the same valid rows' count, one with a run of 1,000,000 invalid rows at
+    the end (as the unlabelled rows of a scan clip into its last slot), one
+    with short runs only; their times are compared."""
+    rng = np.random.RandomState(11)
+    # 125,000 runs of 8 rows, each ending in its valid row, then one run of
+    # 1,000,000 invalid rows; against 125,000 runs of 16
+    long_tail = _place_case(
+        "one run of 1,000,000 invalid rows",
+        [8] * 125_000 + [1_000_000], [7] * 125_000 + [-1], 7, 125_000, 1)
+    short = _place_case("short runs, the same n", [16] * 125_000,
+                        [15] * 125_000, 7, 125_000, 2)
+    # lengths from 1 to 3,000 rows, so runs cross every warp and tile
+    # boundary; the valid row first, last, in the middle or absent
+    lengths = np.concatenate([rng.randint(1, 40, 3000),
+                              rng.randint(1, 3000, 300)])
+    rng.shuffle(lengths)
+    choice = rng.randint(0, 4, len(lengths))
+    valid_at = np.select([choice == 0, choice == 1, choice == 2],
+                         [0, lengths - 1, lengths // 2], -1)
+    ends = _place_case("valid rows first, last and inside runs of 1-3,000",
+                       lengths, valid_at, 7, len(lengths), 3)
+    one = _place_case("one channel", lengths, valid_at, 1, len(lengths), 4)
+    nine = _place_case("nine channels", lengths, valid_at, 9,
+                       len(lengths) - 700, 5)  # the tail clips
+    empty = _place_case("no row", [], [], 7, 1000, 6)
+    return [long_tail, short, ends, one, nine, empty]
+
+
+def sa_mlp_pool_cases():
+    """Inputs that stress ``sa_mlp_pool``'s tiling, at both tile sizes: a
+    list of (name, grouped (M, K, Cin) float32, valid (M, K) bool,
+    [(W, b)] * 3 float32).
+    Every case has a centroid with no valid neighbour (row M // 2) and one
+    with only its last neighbour valid (row 0)."""
+    rng = np.random.RandomState(12)
+
+    def case(name, m, k, cin, hidden):
+        g = (rng.randn(m, k, cin) * 0.5).astype(np.float32)
+        v = rng.rand(m, k) > 0.3
+        v[m // 2] = False
+        v[0] = False
+        v[0, -1] = True
+        dims = [cin, *hidden]
+        w = [((rng.randn(a, b) * 0.2).astype(np.float32),
+              (rng.randn(b) * 0.1).astype(np.float32))
+             for a, b in zip(dims[:-1], dims[1:])]
+        return name, g, v, w
+
+    return [case("K = 16", 300, 16, 3, (32, 32, 64)),
+            case("K = 48", 77, 48, 6, (16, 32, 24)),
+            case("K = 128", 45, 128, 3, (32, 32, 64)),
+            case("M = 1", 1, 32, 3, (32, 32, 64)),
+            case("M = 1, K = 1", 1, 1, 5, (8, 8, 8)),
+            case("M not a multiple of the tile", 131, 32, 67,
+                 (64, 64, 128)),
+            case("Cin = 67, K = 20", 53, 20, 67, (64, 64, 128)),
+            case("wide layers", 9, 32, 40, (128, 64, 128)),
+            # enough centroids for tiles of up to 128 rows: 6 centroids of
+            # 20 rows (a centroid across pieces), 2 of 48 (3 pieces)
+            case("128-row tiles, K = 20", 1100, 20, 3, (32, 32, 64)),
+            case("128-row tiles, K = 48", 1100, 48, 6, (16, 32, 24))]

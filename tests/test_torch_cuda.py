@@ -32,7 +32,7 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
     pointnet as P)
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
-    column_occupancy_cases)
+    column_occupancy_cases, place_dense_cases, sa_mlp_pool_cases)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -184,6 +184,15 @@ def test_place_dense_matches_plain_version(cuda_device):
             assert torch.equal(g, w)
     assert kernels.LAUNCHES["place_dense"] == 2
     assert got[0].shape == (7, 9216) and not got[1].any()
+    # a run of 1,000,000 invalid rows, valid rows first and last in runs
+    # that cross every tile, n = 0, C = 1 and 9
+    for name, *arrays, kk in place_dense_cases():
+        args = [torch.from_numpy(x).to(cuda_device) for x in arrays]
+        got = place.place_dense(*args, kk)
+        want = place.place_dense_reference(*args, kk)
+        for g, w in zip(got, want):
+            assert torch.equal(g.contiguous().view(torch.int32),
+                               w.contiguous().view(torch.int32)), name
 
 
 def test_centroid_routes_agree_on_card(cuda_device, monkeypatch):
@@ -284,9 +293,27 @@ def test_sa_mlp_pool_matches_plain_version(cuda_device, dtype, tol):
         assert kernels.LAUNCHES["sa_mlp_pool"] == 1
         assert got.shape == (m, hidden[-1]) and not got[0].any()
         assert float(((got - want).abs() / (1 + want.abs())).max()) <= tol
+    # the tiling's edges: K 16, 48 and 128, M = 1, M not a multiple of the
+    # tile, Cin = 67; row 0 has only its last neighbour valid, row M // 2
+    # none; two runs bit-identical
     with pytest.raises(ValueError, match="multiples of 8"):
         P.sa_mlp_pool(g, v, [(w[0][0][:, :12].contiguous(), w[0][1][:12]),
                              (w[1][0][:12].contiguous(), w[1][1]), w[2]])
+    # the tiling's edges: K 16, 48 and 128, M = 1, M not a multiple of the
+    # tile, Cin = 67; row 0 has only its last neighbour valid, row M // 2
+    # none; two runs bit-identical
+    for name, *arrays, w_np in sa_mlp_pool_cases():
+        gc, vc = (torch.from_numpy(x).to(cuda_device) for x in arrays)
+        wc = [(torch.from_numpy(a).to(cuda_device),
+               torch.from_numpy(b).to(cuda_device)) for a, b in w_np]
+        got = P.sa_mlp_pool(gc, vc, wc, compute_dtype=dtype)
+        want = P.sa_mlp_pool_reference(gc, vc, wc, dtype)
+        err = float(((got - want).abs() / (1 + want.abs())).max())
+        assert err <= tol, name
+        assert torch.equal(got, P.sa_mlp_pool(gc, vc, wc,
+                                              compute_dtype=dtype)), name
+        assert bool(want[0].any()), name
+        assert gc.shape[0] == 1 or not got[gc.shape[0] // 2].any(), name
 
 
 def test_neural_card_matches_cpu(cuda_device):

@@ -30,9 +30,9 @@ Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
-import ctypes
-import subprocess
 import sys
+
+from tools.variants import build, swap
 
 # stage -> the text it replaces in the scan and what it puts there; each
 # stage keeps the cuts of the stages after it out
@@ -57,50 +57,17 @@ _SCANS = ("262,144-point scan", "1M scan", "3M scan")
 
 def _variants(src: str) -> dict:
     """name -> (source, computes the whole function)."""
-
-    def swap(text, old, new):
-        if text.count(old) != 1:
-            raise SystemExit(f"scan_stages: {old!r} is not in the source "
-                             f"exactly once")
-        return text.replace(old, new)
-
     out = {}
     for name, cut in _STAGES.items():
-        out[f"stage {name}"] = (swap(src, *cut) if cut else src,
-                                cut is None)
+        out[f"stage {name}"] = (swap(src, *cut, "scan_stages") if cut
+                                else src, cut is None)
     for tile, window in _TILES:
         text = swap(src, "constexpr int kTileCols = 256;",
-                    f"constexpr int kTileCols = {tile};")
+                    f"constexpr int kTileCols = {tile};", "scan_stages")
         text = swap(text, "constexpr int kWindow = 1024;",
-                    f"constexpr int kWindow = {window};")
+                    f"constexpr int kWindow = {window};", "scan_stages")
         out[f"tile {tile} window {window}"] = (text, True)
     return out
-
-
-def _build(variants: dict) -> dict:
-    """name -> the loaded library of each variant, built all at once."""
-    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
-    out_dir = kernels.BUILD_DIR / "scan_stages"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = kernels._nvcc()
-    jobs = {}
-    for i, (name, (text, _)) in enumerate(variants.items()):
-        src, so = out_dir / f"v{i}.cu", out_dir / f"v{i}.so"
-        src.write_text(text)
-        jobs[name] = (so, subprocess.Popen(
-            [nvcc, *kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"scan_stages: nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("column_counts_launch", "border_min_launch"):
-            getattr(lib, fn).argtypes = kernels._SIGNATURES[fn]
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
 
 
 def main() -> int:
@@ -118,7 +85,8 @@ def main() -> int:
     print(S.gpu_identity())
     variants = _variants(
         (kernels.CSRC_DIR / "column_neighbours.cu").read_text())
-    libs = _build(variants)
+    libs = build("scan_stages", variants,
+                 ("column_counts_launch", "border_min_launch"))
     dev = torch.device("cuda", 0)
     for name, pts, mask, eps, min_samples, ncx, ncy, cap in S.column_cases():
         if name not in _SCANS:
