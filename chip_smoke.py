@@ -12,15 +12,20 @@ Run from the root of a checkout. It
      (integers bit-equal) and times both with CUDA events, and the kernel
      also replayed from a CUDA graph (the device's time without the
      wrapper's host cost): ``radius_count`` at the pipeline's three shapes
-     (one kernel a call under the profiler) and edge cases, the five
+     (one kernel a call in a captured CUDA graph) and edge cases, the six
      column-table kernels of the venue-scale clustering at the 262,144-,
-     1M- and 3M-point scans' shapes and on edge cases (an empty table, a
+     1M- and 3M-point scans' shapes and the temporal sequence's
+     100,000-point frame, and on edge cases (an empty table, a
      full column and one past its cap, neighbours at exactly eps, a chain
      across the whole grid, a scattered mask, points at both ends of every
      x row's run of the stream, a sparse x row between two rows of full
-     columns, every column full, a cap of 512; the propagation and the
-     count and border-min scan also captured in a CUDA
-     graph, which a read back to the host would break), ``fps`` single and
+     columns, every column full, a cap of 512, labels pointing forward,
+     dropped and masked points, an empty stream, N not a multiple of the
+     tile; the propagation, the count and border-min scan and the tail
+     ``dense_tail`` also captured in a CUDA graph, which a read back to
+     the host would break; ``dense_tail`` also on label arrays fed as
+     they are, and beside the first design's tail, ``table_gather`` and
+     the plain ranks, which it replaces on the path), ``fps`` single and
      batched on each
      route of its launch plan (the cloud in registers, one block with the
      cloud in shared memory, a thread-block cluster, one block streaming
@@ -42,7 +47,12 @@ Run from the root of a checkout. It
      values on the CPU, recorded below;
   6. runs a 1,000,000-point venue on the card (the column-grid clustering
      and the bucketed density): the JAX package's recorded values, every
-     column kernel launched, a second run bit-identical;
+     column kernel launched, a second run bit-identical; and
+     ``Pipeline.analyze_sequence`` on ``BASELINE.md`` config 3 (4 frames
+     of 100,000 points): one clustering a frame, the card against the
+     port's CPU run and the JAX package's recorded values, the flow's
+     cosine against the generator's motion at least 0.9, a second run
+     bit-identical, its warm wall time and stages;
   7. serves the shipped checkpoint through ``NeuralPipeline(device="cuda")
      .analyze`` (the card against the port's CPU run and the JAX package's
      recorded values, two ``fps_batched`` launches on the register route
@@ -65,6 +75,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -82,6 +93,8 @@ KERNELS = {
                    f"{JAX_PKG}/ops/pallas/fill.py:177"),
     "table_gather": (f"{PORT}/csrc/column_table.cu",
                      f"{JAX_PKG}/ops/pallas/fill.py:280"),
+    "dense_tail": (f"{PORT}/csrc/dense_tail.cu",
+                   f"{JAX_PKG}/ops/pallas/fill.py:280"),
     "column_counts": (f"{PORT}/csrc/column_neighbours.cu",
                       f"{JAX_PKG}/ops/ccl.py:325"),
     "border_min": (f"{PORT}/csrc/column_neighbours.cu",
@@ -97,7 +110,10 @@ KERNELS = {
     "sa_mlp_pool": (f"{PORT}/csrc/sa_mlp_pool.cu",
                     f"{JAX_PKG}/ops/pallas/kernels.py:166"),
 }
-COLUMN_KERNELS = tuple(KERNELS)[1:6]
+COLUMN_KERNELS = tuple(KERNELS)[1:7]
+# the kernels every column-grid clustering launches: table_gather, the
+# clustering's first design of its tail, is off the path since dense_tail
+COLUMN_PATH = tuple(k for k in COLUMN_KERNELS if k != "table_gather")
 # H100 SXM published peaks: HBM bandwidth, FP32 outside the tensor cores,
 # bf16 in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -123,6 +139,16 @@ JAX_REFERENCE_1M = {"people": 44449, "n_clusters": 44449,
 JAX_REFERENCE_3M = {"people": 133253, "n_clusters": 133253,
                     "max_density": 4.5, "avg_density": 0.4935303032398224,
                     "direction": "E", "severities": [9, 9, 8]}
+# BASELINE.md config 3 (sequence_frames) through the JAX package's
+# Pipeline().analyze_sequence(frames, dt=0.5) on the CPU (``python3 -m
+# tools.jax_reference_values sequence``): the last frame's people, each
+# frame's person-like people, the flow
+JAX_REFERENCE_SEQUENCE = {"people": 3275, "tracked": [479, 469, 476, 478],
+                          "avg_speed": 1.01084566116333, "direction": "E",
+                          "severities": []}
+# the flow's cosine against the generator's motion, as
+# tests/test_temporal.py holds the JAX package
+SEQUENCE_COSINE = 0.9
 # The shipped checkpoint through the JAX package's
 # NeuralPipeline(use_pallas=False).analyze on the CPU, a fresh pipeline per
 # cloud (``python3 -m tools.jax_reference_values neural``):
@@ -171,20 +197,38 @@ def max_sweeps() -> int:
 
 def require_one_pass(launches: dict, what: str) -> None:
     """Every clustering of a run (one ``table_fill`` a clustering) made
-    one ``column_counts`` and one ``border_min`` launch and the
-    propagation's constant number."""
+    one ``column_counts``, one ``border_min`` and the tail's launches and
+    the propagation's constant number, and no ``table_gather``."""
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
         columns as C)
     runs = launches["table_fill"]
     print(f"{what}: {runs} clusterings, {launches['column_counts']} "
-          f"column_counts, {launches['border_min']} border_min and "
-          f"{launches['propagate']} propagation launches")
+          f"column_counts, {launches['border_min']} border_min, "
+          f"{launches['propagate']} propagation and "
+          f"{launches['dense_tail']} dense_tail launches")
     for k in ("column_counts", "border_min"):
         require(launches[k] == runs, f"{what}: {launches[k]} {k} launches "
                 f"in {runs} clusterings, one each expected")
+    tail = C.TAIL_LAUNCHES
+    require(launches["dense_tail"] == tail * runs and
+            launches["table_gather"] == 0,
+            f"{what}: {launches['dense_tail']} dense_tail and "
+            f"{launches['table_gather']} table_gather launches in {runs} "
+            f"clusterings, {tail} and 0 each expected")
     require(launches["propagate"] == C.PROPAGATE_LAUNCHES * runs,
             f"{what}: {launches['propagate']} propagation launches in {runs} "
             f"clusterings, {C.PROPAGATE_LAUNCHES} each expected")
+
+
+def parent_tail(labels, point_stream):
+    """The clustering's tail as its first design ran it on the card: the
+    ``table_gather`` kernel, ``torch.where`` and the plain ranks
+    (``dense_ids``): the yardstick of ``dense_tail``."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        columns as C)
+    lab = C.table_gather(labels, point_stream, C.INT_MAX)
+    return C.dense_ids(torch.where(lab == C.INT_MAX, -1, lab))
 
 
 def phase(name: str) -> None:
@@ -325,11 +369,9 @@ def radius_cases(dev):
     return out
 
 
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Mean device milliseconds per call of ``fn`` replayed from a CUDA
-    graph that captured ``iters`` calls: the kernels' time without the
-    wrapper's host cost. A read of the device inside ``fn`` would fail the
-    capture."""
+def _captured(fn, iters: int, keep_graph: bool = False):
+    """A CUDA graph that captured ``iters`` calls of ``fn``, after three
+    warm-up calls on a side stream (builds, attributes, allocations)."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -338,10 +380,20 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    return graph
+
+
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn`` replayed from a CUDA
+    graph that captured ``iters`` calls: the kernels' time without the
+    wrapper's host cost. A read of the device inside ``fn`` would fail the
+    capture."""
+    import torch
+    graph = _captured(fn, iters)
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -354,20 +406,61 @@ def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+# CUgraphNodeType values (cuda.h) of the nodes a capture makes
+_NODE_KERNEL, _NODE_MEMCPY, _NODE_MEMSET = 0, 1, 2
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+    _fields_ = [("func", ctypes.c_void_p),
+                ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
 def device_kernels(fn) -> dict:
-    """{kernel name: launches} of one call of ``fn`` under
-    ``torch.profiler``, memsets left out."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA
-            and "memset" not in e.key.lower()}
+    """{kernel name: launches} of one call of ``fn``, read from the nodes
+    of a CUDA graph that captured it (through the driver API): every
+    kernel it launches, by its mangled name, memsets left out, and a copy
+    as ``"memcpy"``. Exact, where ``torch.profiler``'s CUPTI trace at times
+    lost a call's first kernel. ``fn`` must be capturable."""
+    driver = ctypes.CDLL("libcuda.so.1")
+
+    def call(what, *args):
+        rc = getattr(driver, what)(*args)
+        require(rc == 0, f"{what} returned CUresult {rc}")
+
+    graph = _captured(fn, 1, keep_graph=True)
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", handle, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cuGraphGetNodes", handle, nodes, ctypes.byref(count))
+    seen: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value == _NODE_MEMSET:
+            continue
+        if kind.value == _NODE_KERNEL:
+            params = _KernelNodeParams()
+            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+                 ctypes.byref(params))
+            func = ctypes.c_void_p(params.func)
+            if not params.func:
+                call("cuKernelGetFunction", ctypes.byref(func),
+                     ctypes.c_void_p(params.kern))
+            name = ctypes.c_char_p()
+            call("cuFuncGetName", ctypes.byref(name), func)
+            key = name.value.decode()
+        else:
+            key = "memcpy" if kind.value == _NODE_MEMCPY else (
+                f"graph node of type {kind.value}")
+        seen[key] = seen.get(key, 0) + 1
+    del graph
+    return seen
 
 
 def radius_needed_pairs(centers, people, pmask, radius) -> int:
@@ -414,7 +507,7 @@ def run_radius_checks(dev) -> dict:
         max_err = max(max_err, err)
 
     # the wrapper launches the kernel and nothing else, and reads nothing
-    # back: one kernel under the profiler, and a CUDA graph captures it
+    # back: a CUDA graph captures it, and holds one kernel node
     name, c, p, m = cases[1]
     seen = device_kernels(lambda: kernels.radius_count(c, p, m, RADIUS))
     print(f"radius_count {name}: kernels of one call {seen}")
@@ -458,18 +551,50 @@ def run_radius_checks(dev) -> dict:
 # scan's times are the kernels' record
 COLUMN_SCANS = ((262_144, "262,144-point scan"), (1_000_000, "1M scan"),
                 (3_000_000, "3M scan"))
+SEQUENCE_FRAME = "100,000-point sequence frame"
+# BASELINE.md config 3 as benchmarks/temporal.py builds it: 4 frames of
+# 100,000 points, 500 people walking toward the exit at 1 m/s, 0.5 s apart
+SEQUENCE_POINTS, SEQUENCE_FRAMES, SEQUENCE_DT = 100_000, 4, 0.5
+
+
+def sequence_frames() -> tuple:
+    """(extent, the frames) of the temporal sequence."""
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+        venue_sequence)
+    extent = (SEQUENCE_POINTS / 10_000) ** 0.5 * 15.0
+    return extent, venue_sequence(
+        n_frames=SEQUENCE_FRAMES, dt=SEQUENCE_DT, n_points=SEQUENCE_POINTS,
+        n_people=max(10, int(50 * (extent / 15.0) ** 2)), extent=extent,
+        speed=1.0)
+
+
+def scan_case(name: str, venue):
+    """The clustering inputs of a cloud at the capacities fit_capacity
+    gives it: (name, points (N, 3) float32, mask (N,), eps, min_samples,
+    ncx, ncy, column cap), the mask the non-ground points (above the 30th
+    z percentile, preprocess's ground split)."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    cap = Pipeline(device="cpu").fit_capacity(venue).capacity
+    ng = venue[:, 2] > np.percentile(venue[:, 2], 30.0)
+    n = cap.cluster_capacity
+    buf = np.zeros((n, 3), np.float32)
+    buf[:len(venue)] = venue
+    m = np.zeros(n, bool)
+    m[:len(venue)] = ng
+    return (name, buf, m, 0.3, 5, cap.cluster_cells_x, cap.cluster_cells_y,
+            cap.cluster_column_cap)
 
 
 def column_cases():
     """(name, points (N, 3) float32, mask (N,), eps, min_samples, ncx,
     ncy, column cap) as numpy, one at a time: the 262,144-, 1M- and
     3M-point scans' clustering inputs at the capacities fit_capacity gives
-    them, then the edge cases."""
+    them and the temporal sequence's first frame's, then the edge cases."""
     import numpy as np
     from lidar_ai_recommendation_software_tpu_torch import scaled_venue
-    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
     from lidar_ai_recommendation_software_tpu_torch.synthetic import (
-        column_occupancy_cases)
+        column_occupancy_cases, dense_tail_cases)
 
     def padded(pts, n, mask=None):
         buf = np.zeros((n, 3), np.float32)
@@ -479,15 +604,8 @@ def column_cases():
         return buf, m
 
     for n_scan, name in COLUMN_SCANS:
-        venue = scaled_venue(n_scan)
-        cap = Pipeline(device="cpu").fit_capacity(venue).capacity
-        # the clustering mask of the scan: non-ground, above the 30th z
-        # percentile (preprocess's ground split)
-        ng = venue[:, 2] > np.percentile(venue[:, 2], 30.0)
-        buf, m = padded(venue, cap.cluster_capacity, ng)
-        del venue
-        yield (name, buf, m, 0.3, 5, cap.cluster_cells_x,
-               cap.cluster_cells_y, cap.cluster_column_cap)
+        yield scan_case(name, scaled_venue(n_scan))
+    yield scan_case(SEQUENCE_FRAME, sequence_frames()[1][0])
 
     rng = np.random.RandomState(1)
     buf, _ = padded(rng.uniform(-5, 5, (4096, 3)), 4096)
@@ -534,6 +652,27 @@ def column_cases():
     yield ("scattered mask", buf, m, 0.3, 5, 100, 100, 32)
 
     yield from column_occupancy_cases()
+    yield from dense_tail_cases()
+
+
+def clustering_labels(dev, pts, mask, eps, min_samples, ncx, ncy,
+                      cap) -> tuple:
+    """A case's clustering on the card up to its tail, through the column
+    kernels: (the final labels (N,) int32 in stream order, point_stream
+    (N,) int32, the placed points)."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops import ccl
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        columns as C)
+    t = ccl.build_table(torch.from_numpy(pts).to(dev),
+                        torch.from_numpy(mask).to(dev), eps, ncx, ncy, cap)
+    nb = (t.table, t.stream_slot, t.cell_start, t.py, t.cap, eps)
+    core = (t.stream_slot >= 0) & (C.column_counts(*nb) >= min_samples)
+    labels = torch.where(core, t.order, C.INT_MAX)
+    C.propagate(t.table, t.stream_slot, t.point_stream, t.py, t.cap, eps,
+                labels, max_sweeps())
+    labels = torch.where(core, labels, C.border_min(*nb, labels))
+    return labels, t.point_stream, int((t.stream_slot >= 0).sum())
 
 
 def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
@@ -608,11 +747,30 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     same("table_gather", got, C.table_gather_reference(final, pst,
                                                        C.INT_MAX))
     n_clusters = int(torch.unique(got[got != C.INT_MAX]).numel())
+    dense, n_dense = C.dense_tail(final, pst)
+    want_dense, want_n = C.dense_tail_reference(final, pst)
+    same("dense_tail", dense, want_dense)
+    same("dense_tail", n_dense, want_n)
+    require(int(n_dense) == n_clusters, f"{name}: dense_tail counts "
+            f"{int(n_dense)} clusters, the labels hold {n_clusters}")
+    # no read of the device: a CUDA graph captures the tail, and a replay
+    # gives the same ids
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed, replayed_n = C.dense_tail(final, pst)
+    graph.replay()
+    same("dense_tail", replayed, want_dense)
+    same("dense_tail", replayed_n, want_n)
+    forward = int((got[got != C.INT_MAX] > torch.arange(
+        got.shape[0], device=dev)[got != C.INT_MAX]).sum())
     print(f"columns {name}: {int(mask.sum())} valid points, {n_occ} placed, "
           f"overflow {int(ov)}, {int(core.sum())} core, {n_clusters} "
-          f"clusters, {launched} propagation launches (the plain version's "
+          f"clusters, {forward} labels above their point's index, "
+          f"{launched} propagation launches (the plain version's "
           f"sweeps: {sweeps}); max_abs_err "
           f"{max(errs.values())}")
+    if name == "labels pointing forward":
+        require(forward >= 20, f"{name}: {forward} labels point forward")
 
     if name == "full column and one past":
         require(int(ov) == 1, "one point past a full column is overflow")
@@ -664,6 +822,9 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
                        + 8 * n, 0),
         # point_stream read, the placed points' values, out written
         "table_gather": (4 * n + 4 * n_occ + 4 * n, 0),
+        # the same, and n_clusters (the ranks need no bytes of their own
+        # from DRAM: a design can keep them on chip)
+        "dense_tail": (4 * n + 4 * n_occ + 4 * n + 4, 0),
         # the occupied slots (each column's occupancy from cell_start, so
         # no end marker and no stream_slot), cell_start, out
         "column_counts": (16 * n_occ + 4 * (ncells + 1) + 4 * n, 9 * pairs),
@@ -693,6 +854,8 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
         "table_gather": (lambda: C.table_gather(final, pst, C.INT_MAX),
                          lambda: C.table_gather_reference(final, pst,
                                                           C.INT_MAX)),
+        "dense_tail": (lambda: C.dense_tail(final, pst),
+                       lambda: C.dense_tail_reference(final, pst)),
         "column_counts": (lambda: C.column_counts(*nb_args),
                           lambda: C.column_counts_reference(*nb_args)),
         "border_min": (lambda: C.border_min(*nb_args, lab),
@@ -720,21 +883,69 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
             times[kernel]["walked_bound_ms"] = w_ms
             print(f"{kernel} at the {name}: bound of a walk to each "
                   f"column's end marker {w_ms:.6f} ms ({w_by})")
+    # the tail's first design on the same labels, and the kernels one call
+    # of each design launches
+    parent_ms = graph_ms(lambda: parent_tail(final, pst))
+    times["dense_tail"]["parent_graph_ms"] = parent_ms
+    seen_parent = device_kernels(lambda: parent_tail(final, pst))
+    seen_tail = device_kernels(lambda: C.dense_tail(final, pst))
+    print(f"dense_tail at the {name}: the first design's tail (table_gather, "
+          f"where, dense_ids) {parent_ms:.6f} ms from a CUDA graph, "
+          f"{sum(seen_parent.values())} kernels a call; dense_tail "
+          f"{sum(seen_tail.values())}: {seen_tail}")
+    # the wrapper launches its kernels and nothing else
+    require(all("dense_tail" in k for k in seen_tail)
+            and sum(seen_tail.values()) == C.TAIL_LAUNCHES,
+            f"dense_tail launches {C.TAIL_LAUNCHES} kernels a call and "
+            f"nothing else, its captured graph holds {seen_tail}")
     return {"errs": errs, "times": times}
 
 
+def run_tail_label_checks(dev) -> int:
+    """``dense_tail`` against its plain version on
+    ``synthetic.dense_tail_label_cases`` (labels fed as they are); the
+    largest error."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        columns as C)
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+        dense_tail_label_cases)
+    worst = 0
+    for name, labels, stream in dense_tail_label_cases():
+        lab = torch.from_numpy(labels).to(dev)
+        pst = torch.from_numpy(stream).to(dev)
+        got, got_n = C.dense_tail(lab, pst)
+        want, want_n = C.dense_tail_reference(lab, pst)
+        torch.cuda.synchronize()
+        err = max(int_err(got, want), int_err(got_n, want_n))
+        worst = max(worst, err)
+        print(f"dense_tail labels {name}: {int(want_n)} representatives, "
+              f"plan {C.dense_tail_plan(len(labels))}"
+              f", max_abs_err {err}")
+        require(torch.equal(got, want) and torch.equal(got_n, want_n),
+                f"dense_tail differs from its plain version: {name}")
+    return worst
+
+
 def run_column_checks(dev) -> dict:
-    """Every case; the times of the three scans', the 1M-point scan's as
-    the record."""
+    """Every case; the times of the three scans' and the sequence frame's,
+    the 1M-point scan's as the record."""
     errs = {k: 0 for k in COLUMN_KERNELS}
     times = {}
-    scans = {name for _, name in COLUMN_SCANS}
+    scans = {name for _, name in COLUMN_SCANS} | {SEQUENCE_FRAME}
     for name, *args in column_cases():
         res = check_column_case(dev, name, *args, timed=name in scans)
         for k, e in res["errs"].items():
             errs[k] = max(errs[k], e)
         if "times" in res:
             times[name] = res["times"]
+    errs["dense_tail"] = max(errs["dense_tail"], run_tail_label_checks(dev))
+    print("dense_tail, graph ms / the first design's tail's graph ms / bound "
+          "ms: " + "; ".join(
+              f"{name} {t['dense_tail']['graph_ms']:.6f} / "
+              f"{t['dense_tail']['parent_graph_ms']:.6f} / "
+              f"{t['dense_tail']['bound_ms']:.6f}"
+              for name, t in times.items()))
     for kernel in COLUMN_KERNELS:
         print(f"{kernel}, ms / graph ms / bound ms: " + "; ".join(
             f"{name} {t[kernel]['ms']:.6f} / {t[kernel]['graph_ms']:.6f} / "
@@ -1615,6 +1826,127 @@ def run_sa_layer(dev, layer_points, ident: str) -> dict:
     return launches
 
 
+def sequence_arrays(out) -> dict:
+    """Every output of analyze_sequence as numpy, for bit comparison."""
+    seq = out["tracked_people"]
+    f = out["flow"]
+    return {**host_arrays(out),
+            "tracked_mask": seq.mask.cpu().numpy(),
+            "tracked_positions": seq.positions.cpu().numpy(),
+            "flow_positions": f["flow_vectors"]["positions"]}
+
+
+def flow_cosine(out, extent: float) -> float:
+    """The mean cosine between the measured node vectors (speed above
+    0.05 m/s) and the generator's motion toward the exit at (extent, 0)."""
+    import numpy as np
+    f = out["flow"]
+    pos = np.asarray(f["flow_vectors"]["positions"])
+    vec = np.asarray(f["flow_vectors"]["vectors"])
+    gt = np.stack([extent - pos[:, 0], -pos[:, 1]], 1)
+    gt /= np.maximum(np.linalg.norm(gt, axis=1, keepdims=True), 1e-9)
+    vn = np.linalg.norm(vec, axis=1)
+    ok = vn > 0.05
+    require(ok.any(), "the sequence's flow has no moving node")
+    return float(np.mean(np.sum(vec[ok] / vn[ok, None] * gt[ok], axis=1)))
+
+
+def sequence_stages(pipe, frames, ident: str) -> None:
+    """Where analyze_sequence's time goes: medians of 5 warm, synchronised
+    runs on the host clock of the last frame's ``analyze``, each earlier
+    frame's ``people_of_cloud`` (upload included), and
+    ``temporal_flow_multi`` on the tracked stack; the host's share is the
+    whole less those."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import temporal
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import (
+        people_of_cloud)
+    from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
+
+    out = pipe.analyze_sequence(frames, dt=SEQUENCE_DT)
+    cfg = pipe.fit_capacity(np.asarray(frames[0], np.float64))
+    proc = out["processed"]
+    stages = {
+        "analyze, last frame": lambda: pipe.analyze(frames[-1]),
+        **{f"people_of_cloud, frame {t}": (
+            lambda f=f: people_of_cloud(PointCloud.from_numpy(
+                np.asarray(f, np.float64), cfg.capacity.max_points,
+                device=pipe.device), cfg))
+           for t, f in enumerate(frames[:-1])},
+        "temporal_flow_multi": lambda: temporal.temporal_flow_multi(
+            out["tracked_people"], SEQUENCE_DT, proc.mins[:2],
+            proc.maxs[:2], cfg),
+        "whole": lambda: pipe.analyze_sequence(frames, dt=SEQUENCE_DT),
+    }
+    ms = {name: wall_ms(fn) for name, fn in stages.items()}
+    ms["host and the rest"] = ms["whole"] - sum(
+        v for k, v in ms.items() if k != "whole")
+    for name, v in ms.items():
+        print(f"analyze_sequence stage {name}: {v:.3f} ms (median of 5, "
+              f"warm, synchronised) on {ident}")
+    torch.cuda.synchronize()
+
+
+def run_sequence(pipe, ident: str) -> dict:
+    """``BASELINE.md`` config 3 through ``Pipeline.analyze_sequence``: 4
+    frames of 100,000 points, every frame clustered on the column grid
+    (one clustering a frame), the last frame's density by
+    ``radius_count``. The card against the port's CPU run (integers
+    exact, floats within FLOAT_TOL), against the JAX package's recorded
+    values (avg_speed within 1e-4), the flow's cosine against the
+    generator's motion, and a second run bit-identical. Returns the
+    launch counts of one run."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+
+    extent, frames = sequence_frames()
+    out, launches = traced(
+        lambda: pipe.analyze_sequence(frames, dt=SEQUENCE_DT),
+        "4 x 100,000-point sequence")
+    require(launches["table_fill"] == SEQUENCE_FRAMES,
+            f"the sequence made {launches['table_fill']} clusterings, one a "
+            f"frame ({SEQUENCE_FRAMES}) expected")
+    require_one_pass(launches, "the sequence run")
+    require(launches["radius_count"] == 1, f"the last frame's density "
+            f"launches radius_count once, got {launches['radius_count']}")
+    seq = out["tracked_people"]
+    tracked = seq.mask.sum(1).tolist()
+    got = {"people": out["density"]["total_people"], "tracked": tracked,
+           "avg_speed": out["flow"]["avg_speed"],
+           "direction": out["flow"]["dominant_direction"],
+           "severities": [b["severity"] for b in out["flow"]["bottlenecks"]]}
+    nodes = len(out["flow"]["flow_vectors"]["vectors"])
+    print(f"card, sequence: {got}; {nodes} flow nodes, people capacity "
+          f"{seq.mask.shape[1]}")
+    print(f"JAX package on the CPU (recorded): {JAX_REFERENCE_SEQUENCE}")
+    for key, want in JAX_REFERENCE_SEQUENCE.items():
+        if key == "avg_speed":
+            require(abs(got[key] - want) <= 1e-4, f"sequence: {key} "
+                    f"{got[key]} vs {want}")
+        else:
+            require(got[key] == want, f"sequence: {key} {got[key]} vs "
+                    f"{want}")
+    cos = flow_cosine(out, extent)
+    print(f"flow cosine against the generator's motion: {cos:.6f} (at "
+          f"least {SEQUENCE_COSINE})")
+    require(cos >= SEQUENCE_COSINE, f"flow cosine {cos}")
+    cpu = Pipeline(device="cpu").analyze_sequence(frames, dt=SEQUENCE_DT)
+    check_same(sequence_arrays(out), sequence_arrays(cpu), False,
+               "sequence, card vs CPU")
+    print("card equals the port on the CPU: yes")
+    again = pipe.analyze_sequence(frames, dt=SEQUENCE_DT)
+    check_same(sequence_arrays(out), sequence_arrays(again), True,
+               "second sequence run")
+    print("second run bit-identical: yes")
+    ms = wall_ms(lambda: pipe.analyze_sequence(frames, dt=SEQUENCE_DT))
+    print(f"analyze_sequence, {SEQUENCE_FRAMES} x {SEQUENCE_POINTS:,} "
+          f"points: median {ms:.3f} ms of 5 (warm, synchronised) on {ident}; "
+          f"{SEQUENCE_FRAMES * SEQUENCE_POINTS / ms * 1e3:.0f} points/s")
+    sequence_stages(pipe, frames, ident)
+    return launches
+
+
 def run_scan_3m(pipe, ident: str) -> tuple:
     """A 3,000,000-point scan: its clustering buffer exceeds 2,097,152
     rows, so the centroids pack their segment ends with ``place_dense``.
@@ -1630,7 +1962,7 @@ def run_scan_3m(pipe, ident: str) -> tuple:
     require(cap.max_points > clustering.SEGSUM_MAX_POINTS,
             "the scan's buffer must exceed the centroid route's switch")
     out, launches = traced(lambda: pipe.analyze(scan), "3,000,000-point")
-    for k in COLUMN_KERNELS:
+    for k in COLUMN_PATH:
         require(launches[k] > 0, f"the 3M-point run did not launch {k}")
     require(launches["place_dense"] == 1, f"the 3M-point run launched "
             f"place_dense {launches['place_dense']} times, once expected")
@@ -1727,7 +2059,7 @@ def main() -> int:
     for n, ref, kernels_used in (
             (40_960, JAX_REFERENCE_40960, ("radius_count",)),
             (262_144, JAX_REFERENCE_262144,
-             ("radius_count", *COLUMN_KERNELS))):
+             ("radius_count", *COLUMN_PATH))):
         phase(f"{n:,}-point venue, card vs the port on the CPU")
         t0 = time.perf_counter()
         venues[n] = scaled_venue(n)
@@ -1751,7 +2083,7 @@ def main() -> int:
     venues[1_000_000] = big = scaled_venue(1_000_000)
     out, launches_1m = traced(lambda: pipe.analyze(big),
                               "1,000,000-point")
-    for k in COLUMN_KERNELS:
+    for k in COLUMN_PATH:
         require(launches_1m[k] > 0, f"the 1M-point run did not launch {k}")
     require_one_pass(launches_1m, "the 1M-point run")
     check_jax_reference(out, JAX_REFERENCE_1M, "card, 1,000,000 points")
@@ -1759,6 +2091,12 @@ def main() -> int:
     check_same(host_arrays(out), host_arrays(again), True,
                "second 1M-point run")
     print("second run bit-identical: yes")
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase(f"temporal sequence, {SEQUENCE_FRAMES} x {SEQUENCE_POINTS:,} "
+          f"points")
+    t0 = time.perf_counter()
+    run_sequence(pipe, ident)
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("fps kernels against their plain version")

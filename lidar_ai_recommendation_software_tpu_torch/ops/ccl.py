@@ -16,9 +16,10 @@ the same clusters as its ``ops/clustering.py`` (``dbscan_columns``):
      sweeps to the fixpoint on the CPU);
   4. border points take the smallest adjacent core label (the border-min
      kernel); the rest is noise;
-  5. labels return to point order (the gather kernel) and become dense ids
-     ranked by each cluster's smallest point index, as the all-pairs
-     ``dbscan_bruteforce`` numbers them.
+  5. labels return to point order and become dense ids ranked by each
+     cluster's smallest point index, as the all-pairs
+     ``dbscan_bruteforce`` numbers them (the tail kernel: the gather and
+     the ranks, one launch a phase).
 
 Steps 2-4 keep one value per point in stream order. Points past a
 column's capacity are dropped and counted in the returned overflow; the
@@ -122,21 +123,6 @@ def build_table(points: torch.Tensor, mask: torch.Tensor, min_cell: float,
                        cap=cap, overflow=overflow)
 
 
-def dense_ids(labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Labels holding each cluster's smallest point index (-1 noise) ->
-    (dense ids 0..C-1 ranked by that index, -1 noise; int32, C () int32).
-    A cluster's representative is the one point whose label is its own
-    index."""
-    n = labels.shape[0]
-    idx = torch.arange(n, dtype=labels.dtype, device=labels.device)
-    is_rep = labels == idx
-    dense_minus1 = torch.cumsum(is_rep.to(torch.int64), 0) - 1
-    dense = torch.where(labels >= 0,
-                        dense_minus1[labels.clamp(0, max(n - 1, 0))
-                                     .to(torch.int64)], -1)
-    return dense.to(torch.int32), is_rep.sum(dtype=torch.int32)
-
-
 def dbscan_gs(points: torch.Tensor, mask: torch.Tensor, eps: float,
               min_samples: int, ncx: int, ncy: int, column_cap: int,
               max_iters: int = 40
@@ -156,6 +142,5 @@ def dbscan_gs(points: torch.Tensor, mask: torch.Tensor, eps: float,
                       eps, labels, max_iters * SWEEPS_PER_CC_ITER)
     # non-core points take their smallest core neighbour's label, if any
     labels = torch.where(core, labels, columns.border_min(*nb, labels))
-    lab = columns.table_gather(labels, t.point_stream, INT_MAX)
-    dense, n_clusters = dense_ids(torch.where(lab == INT_MAX, -1, lab))
+    dense, n_clusters = columns.dense_tail(labels, t.point_stream)
     return dense, n_clusters, t.overflow

@@ -25,7 +25,7 @@ import torch
 
 from lidar_ai_recommendation_software_tpu_torch.ops import ccl
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.columns import (
-    INT_MAX)
+    INT_MAX, dense_ids)
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
     PAIRS_PER_CHUNK)
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.place import (
@@ -122,7 +122,7 @@ def dbscan_bruteforce(points: torch.Tensor, mask: torch.Tensor, eps: float,
     labels = torch.where(mask & ~core & (border_min != INT_MAX), border_min,
                          labels)
     labels = torch.where(labels == INT_MAX, -1, labels)
-    dense, n_clusters = ccl.dense_ids(labels)
+    dense, n_clusters = dense_ids(labels)
     return dense, n_clusters, torch.zeros((), dtype=torch.int32, device=dev)
 
 

@@ -1,11 +1,16 @@
-"""The five column-table kernels of the venue-scale clustering: wrappers
-and plain PyTorch versions.
+"""The column-table kernels of the venue-scale clustering: wrappers and
+plain PyTorch versions.
 
 The counterparts of the JAX package's ``ops/pallas/fill.py``
 (``fill_planes``, ``extract_stream``) and ``ops/ccl.py``
-(``column_counts_planes``, ``border_min_planes``, ``gs_passes``). The
-kernels are ``csrc/column_table.cu`` and ``csrc/column_neighbours.cu``;
-``ops/ccl.py`` composes them into ``dbscan_gs``.
+(``column_counts_planes``, ``border_min_planes``, ``gs_passes``, and the
+ranking of the clusters after ``extract_stream``). The kernels are
+``csrc/column_table.cu``, ``csrc/column_neighbours.cu`` and
+``csrc/dense_tail.cu``; ``ops/ccl.py`` composes them into ``dbscan_gs``:
+``table_fill``, ``column_counts``, ``propagate``, ``border_min``, then
+``dense_tail`` (the gather back to point order and the dense ids, one
+kernel source in two launches). ``table_gather``, the gather alone, is
+the clustering's first design of that step and stays as its yardstick.
 
 The stream: the points sorted stably by column id (``order`` (N,), the
 point at each stream position; ``scid``, its column id, ``ncells`` for a
@@ -411,3 +416,90 @@ def propagate(table: torch.Tensor, stream_slot: torch.Tensor,
         LAUNCHES["propagate"] += launched
     _raise_on(err, "propagate")
     return launched
+
+
+# ---------------------------------------------------------------------------
+# dense_tail: stream-order labels -> dense cluster ids in point order
+# ---------------------------------------------------------------------------
+
+def dense_ids(labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Labels holding each cluster's smallest point index (-1 noise) ->
+    (dense ids 0..C-1 ranked by that index, -1 noise; int32, C () int32).
+    A cluster's representative is the one point whose label is its own
+    index."""
+    n = labels.shape[0]
+    idx = torch.arange(n, dtype=labels.dtype, device=labels.device)
+    is_rep = labels == idx
+    dense_minus1 = torch.cumsum(is_rep.to(torch.int64), 0) - 1
+    dense = torch.where(labels >= 0,
+                        dense_minus1[labels.clamp(0, max(n - 1, 0))
+                                     .to(torch.int64)], -1)
+    return dense.to(torch.int32), is_rep.sum(dtype=torch.int32)
+
+
+def dense_tail_reference(labels: torch.Tensor, point_stream: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``dense_tail``: the gather, INT_MAX to -1, then
+    ``dense_ids``."""
+    lab = table_gather_reference(labels, point_stream, INT_MAX)
+    return dense_ids(torch.where(lab == INT_MAX, -1, lab))
+
+
+# The layout of csrc/dense_tail.cu, whose entry point refuses a plan that
+# does not cover the points with at most TAIL_MAX_BLOCKS blocks:
+TAIL_MAX_BLOCKS = 1024
+# the points one pass of a block's warps takes (16 warps x 4 words of 32)
+TAIL_CHUNK = 2048
+# launches of one call: a phase each
+TAIL_LAUNCHES = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class TailPlan:
+    """Block b of ``csrc/dense_tail.cu`` takes points [b * per_block,
+    (b + 1) * per_block), cut at N."""
+
+    blocks: int
+    per_block: int
+
+
+def dense_tail_plan(n: int) -> TailPlan:
+    """The launch plan for ``n`` points: blocks of whole chunks of
+    TAIL_CHUNK points (the last cut at N), a chunk a block up to
+    TAIL_MAX_BLOCKS blocks, none empty; one block when there is no point
+    (it still writes n_clusters)."""
+    chunks = max(1, -(-n // TAIL_CHUNK))
+    per_block = TAIL_CHUNK * -(-chunks // min(chunks, TAIL_MAX_BLOCKS))
+    return TailPlan(max(1, -(-n // per_block)), per_block)
+
+
+def dense_tail(labels: torch.Tensor, point_stream: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The clustering's labels, (N,) int32 in stream order (a cluster's
+    smallest point index, INT_MAX for none), read back into point order
+    as dense ids: ((N,) int32, -1 where the point has no label or no slot,
+    else its cluster's rank by the cluster's smallest point index;
+    n_clusters () int32).
+
+    On the card: ``csrc/dense_tail.cu`` by ``dense_tail_plan``,
+    TAIL_LAUNCHES launches, no read of the device."""
+    if labels.device.type == "cpu":
+        return dense_tail_reference(labels, point_stream)
+    dev = _cuda_device(labels, "dense_tail")
+    n = point_stream.shape[0]
+    _check("labels", labels, torch.int32, (n,), dev)
+    _check("point_stream", point_stream, torch.int32, (n,), dev)
+    plan = dense_tail_plan(n)
+    fn = load_library().dense_tail_launch
+    with torch.cuda.device(dev):
+        dense = torch.empty(n, dtype=torch.int32, device=dev)
+        n_clusters = torch.empty((), dtype=torch.int32, device=dev)
+        # the words (two int32 per 32 points), then the block totals
+        scratch = torch.empty(2 * -(-n // 32) + plan.blocks,
+                              dtype=torch.int32, device=dev)
+        err = fn(labels.data_ptr(), point_stream.data_ptr(), n, plan.blocks,
+                 plan.per_block, dense.data_ptr(), scratch.data_ptr(),
+                 n_clusters.data_ptr(), _stream(dev))
+        LAUNCHES["dense_tail"] += TAIL_LAUNCHES
+    _raise_on(err, "dense_tail")
+    return dense, n_clusters

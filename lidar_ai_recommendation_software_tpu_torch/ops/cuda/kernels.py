@@ -42,9 +42,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"radius_count": 0, "table_fill": 0, "table_gather": 0,
-            "column_counts": 0, "border_min": 0, "propagate": 0,
-            "place_dense": 0, "fps_single": 0, "fps_batched": 0,
-            "sa_mlp_pool": 0}
+            "dense_tail": 0, "column_counts": 0, "border_min": 0,
+            "propagate": 0, "place_dense": 0, "fps_single": 0,
+            "fps_batched": 0, "sa_mlp_pool": 0}
 # fps launches by the route of its launch plan (ops/cuda/pointnet.py)
 FPS_ROUTES = {"registers": 0, "block": 0, "cluster": 0, "stream": 0}
 
@@ -55,6 +55,7 @@ _SIGNATURES = {
     "radius_count_launch": [_P, _P, _P, _F] + [_I] * 5 + [_P, _P],
     "table_fill_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     "table_gather_launch": [_P, _P, _I, _I, _P, _P],
+    "dense_tail_launch": [_P, _P] + [_I] * 3 + [_P, _P, _P, _P],
     "column_counts_launch": [_P, _P] + [_I] * 4 + [_F, _P, _P, _P],
     "border_min_launch": [_P, _P] + [_I] * 4 + [_F, _P, _P, _P],
     "propagate_launch": [_P, _P, _I, _I, _I, _F, _P, _P, _P],

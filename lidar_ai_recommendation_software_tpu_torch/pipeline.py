@@ -4,15 +4,19 @@
 on the device; the host sizes the static capacities, re-runs with larger
 ones when a capacity overflowed, converts the device results into
 reference-shaped dicts and runs the rule-based recommendation engine.
+``analyze_sequence`` does the same for the last of a sequence of frames
+and measures the flow by tracking people over all of them
+(``models/temporal.py``).
 
 Usage:
     pipe = Pipeline(MONOLITH_CONFIG, device="cuda")
     results = pipe.analyze(points_np)        # host-facing dicts
+    results = pipe.analyze_sequence([frame0, frame1, frame2], dt=0.5)
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,10 +28,12 @@ from lidar_ai_recommendation_software_tpu_torch.utils.recommendations import (
 from lidar_ai_recommendation_software_tpu_torch.models import (
     density as density_mod)
 from lidar_ai_recommendation_software_tpu_torch.models import flow as flow_mod
+from lidar_ai_recommendation_software_tpu_torch.models import (
+    temporal as temporal_mod)
 from lidar_ai_recommendation_software_tpu_torch.ops import clustering
 from lidar_ai_recommendation_software_tpu_torch.preprocess import preprocess
 from lidar_ai_recommendation_software_tpu_torch.types import (
-    AnalysisResults, PointCloud)
+    AnalysisResults, People, PointCloud)
 
 
 def analyze_cloud(cloud: PointCloud, uniforms: torch.Tensor,
@@ -38,6 +44,24 @@ def analyze_cloud(cloud: PointCloud, uniforms: torch.Tensor,
     dres = density_mod.analyze_density(processed, people, config)
     fres = flow_mod.analyze_flow(processed, people, uniforms, config)
     return processed, people, AnalysisResults(density=dres, flow=fres)
+
+
+def people_of_cloud(cloud: PointCloud, config: PipelineConfig) -> tuple:
+    """The tracking program: preprocess and people extraction, no density
+    or flow: (processed, people). What each earlier frame of a sequence
+    needs."""
+    processed = preprocess(cloud, config)
+    return processed, density_mod.extract_people(processed, config)
+
+
+def _shift_flow(flow_results: Dict, ox: float, oy: float) -> None:
+    """Add the recentring offset back to the flow dict's positions (the
+    bottlenecks and the flow vectors), in place."""
+    for b in flow_results["bottlenecks"]:
+        b["x"] += ox
+        b["y"] += oy
+    flow_results["flow_vectors"]["positions"] = (
+        flow_results["flow_vectors"]["positions"] + np.array([ox, oy]))
 
 
 def _bucket_eighth_octave(n: int, floor: int = 64) -> int:
@@ -182,6 +206,29 @@ class Pipeline:
         "force is exact, and it is bounded at 131072 non-ground points. "
         "Downsample first or use the monolith variant.")
 
+    def _run_exact(self, run, cloud: PointCloud, cfg: PipelineConfig
+                   ) -> tuple:
+        """``run(cloud, cfg)``, a tuple that starts (processed, people),
+        re-run under grown capacities until nothing overflows: the
+        clustering's doubled while it overflows a capacity (a full column
+        or the buffer), then the people capacity grown to the next power
+        of two that holds every cluster (the reference never drops one).
+        Returns the last run's output and its config."""
+        out = run(cloud, cfg)
+        while int(out[0].cluster_overflow) > 0:
+            grown = self._grown_cluster_cfg(cfg)
+            if grown is None:
+                raise RuntimeError(self._OVERFLOW_MSG.format(
+                    n=int(out[0].cluster_overflow)))
+            cfg = grown
+            out = run(cloud, cfg)
+        while int(out[1].overflow) > 0:
+            need = cfg.capacity.max_people + int(out[1].overflow)
+            cfg = cfg.with_capacity(
+                max_people=1 << max(1, (need - 1).bit_length()))
+            out = run(cloud, cfg)
+        return out, cfg
+
     def analyze(self, points: np.ndarray) -> Dict:
         """NumPy points in, reference-shaped result dicts out."""
         points = np.asarray(points, dtype=np.float64)[:, :3]
@@ -193,24 +240,8 @@ class Pipeline:
         cfg = self.fit_capacity(points)
         cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
                                       device=self.device)
-        processed, people, res = self.analyze_device(cloud, cfg)
-        # Clustering overflowed a capacity (a full column or the buffer):
-        # grow and re-run.
-        while int(processed.cluster_overflow) > 0:
-            grown = self._grown_cluster_cfg(cfg)
-            if grown is None:
-                raise RuntimeError(self._OVERFLOW_MSG.format(
-                    n=int(processed.cluster_overflow)))
-            cfg = grown
-            processed, people, res = self.analyze_device(cloud, cfg)
-        # More clusters than the people capacity: grow to the next power
-        # of two that holds them all and re-run (the reference never drops
-        # a cluster).
-        while int(people.overflow) > 0:
-            need = cfg.capacity.max_people + int(people.overflow)
-            cfg = cfg.with_capacity(
-                max_people=1 << max(1, (need - 1).bit_length()))
-            processed, people, res = self.analyze_device(cloud, cfg)
+        (processed, people, res), cfg = self._run_exact(
+            self.analyze_device, cloud, cfg)
         # A coarse bucket of the bucketed density count overflowed: double
         # its cap and re-run (it ends: a cap of max_people holds everyone).
         while int(res.density.radius_overflow) > 0:
@@ -228,12 +259,7 @@ class Pipeline:
             for h in density_results["hotspots"]:
                 h["x"] += ox
                 h["y"] += oy
-            for b in flow_results["bottlenecks"]:
-                b["x"] += ox
-                b["y"] += oy
-            flow_results["flow_vectors"]["positions"] = (
-                flow_results["flow_vectors"]["positions"]
-                + np.array([ox, oy]))
+            _shift_flow(flow_results, ox, oy)
         recommendations = generate_recommendations(
             density_results, flow_results, self.config.recommend)
         return {
@@ -244,3 +270,68 @@ class Pipeline:
             "flow": flow_results,
             "recommendations": recommendations,
         }
+
+    def analyze_sequence(self, frames: Sequence[np.ndarray],
+                         dt: float = 1.0) -> Dict:
+        """Frames in time order in, ``analyze``'s dicts out: density and
+        people from the last frame, flow measured by tracking people over
+        every consecutive pair of frames (``models/temporal.py``) in place
+        of the synthesised field.
+
+        The last frame takes the one full ``analyze``; every frame takes
+        ``people_of_cloud`` under one capacity config fitted to the
+        largest frame (the last frame's people from its ``analyze`` when
+        their capacity is that config's), with ``analyze``'s overflow
+        guards. Only person-like clusters (``flow.track_min_height`` above
+        the floor) are tracked. ``tracked_people`` in the result holds
+        them, (T, K, ...).
+
+        Where a frame's clusters outgrow the config's people capacity,
+        every frame is extracted again under the grown config: all frames'
+        people have one capacity, and the flow is what the JAX package
+        computes when it fits that config first (its own
+        ``analyze_sequence`` fails to stack frames of two capacities)."""
+        if len(frames) < 2:
+            return self.analyze(frames[0])
+        out = self.analyze(frames[-1])
+        processed = out["processed"]
+        offset = out["coordinate_offset"]
+        min_h = self.config.flow.track_min_height
+
+        def cloud_of(frame, c):
+            pts = np.asarray(frame, dtype=np.float64)[:, :3] - offset
+            return PointCloud.from_numpy(pts, c.capacity.max_points,
+                                         device=self.device)
+
+        cfg = self.fit_capacity(
+            np.asarray(frames[int(np.argmax([len(f) for f in frames]))],
+                       dtype=np.float64)[:, :3] - offset)
+        tracked: List[People] = []
+        t = 0
+        while t < len(frames):
+            if (t == len(frames) - 1 and out["people"].positions.shape[0]
+                    == cfg.capacity.max_people):
+                proc, ppl = processed, out["people"]
+            else:
+                (proc, ppl), grown = self._run_exact(
+                    people_of_cloud, cloud_of(frames[t], cfg), cfg)
+                restart = (grown.capacity.max_people
+                           != cfg.capacity.max_people)
+                cfg = grown
+                if restart:  # every frame again, under the grown config
+                    tracked, t = [], 0
+                    continue
+            tracked.append(ppl.person_like(min_h, proc.mins[2]))
+            t += 1
+
+        seq = temporal_mod.stack_people(tracked)
+        res = temporal_mod.temporal_flow_multi(
+            seq, dt, processed.mins[:2], processed.maxs[:2], cfg)
+        flow_results = res.to_host_dict()
+        if offset.any():
+            _shift_flow(flow_results, float(offset[0]), float(offset[1]))
+        out["flow"] = flow_results
+        out["tracked_people"] = seq
+        out["recommendations"] = generate_recommendations(
+            out["density"], flow_results, self.config.recommend)
+        return out

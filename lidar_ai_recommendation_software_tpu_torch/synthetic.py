@@ -269,3 +269,112 @@ def sa_mlp_pool_cases():
             # 20 rows (a centroid across pieces), 2 of 48 (3 pieces)
             case("128-row tiles, K = 20", 1100, 20, 3, (32, 32, 64)),
             case("128-row tiles, K = 48", 1100, 48, 6, (16, 32, 24))]
+
+
+def _chains_with_forward_borders(n_chains: int, extent: float) -> tuple:
+    """``n_chains`` lines of 12 points 0.07 m apart along x (every point a
+    core point at eps 0.3, min_samples 5), one to a cell of a lattice over
+    [0.5, extent - 0.5]^2, and, for each, one point 0.29 m off its first
+    point across y (a border point: 3 neighbours, self included). Returns
+    (chain points (12 * n_chains, 3), border points (n_chains, 3)) float32;
+    put the chains at larger indices than the borders and every border
+    point's label (its chain's smallest index) is larger than its own
+    index."""
+    side = int(np.ceil(np.sqrt(n_chains)))
+    cell = (extent - 1.0) / side
+    starts = np.stack([0.5 + (np.arange(n_chains) % side) * cell,
+                       0.5 + (np.arange(n_chains) // side) * cell], 1)
+    k = np.arange(12) * 0.07
+    chains = np.concatenate([np.column_stack([s[0] + k, np.full(12, s[1]),
+                                              np.full(12, 1.0)])
+                             for s in starts])
+    borders = np.column_stack([starts[:, 0], starts[:, 1] + 0.29,
+                               np.full(n_chains, 1.0)])
+    return chains.astype(np.float32), borders.astype(np.float32)
+
+
+def dense_tail_cases():
+    """Clouds whose clustering stresses the tail of the column-grid
+    clustering (``ops/cuda/columns.py::dense_tail``: labels back to point
+    order and ranked), at eps = 0.3 m and min_samples 5: a list of (name,
+    points (N, 3) float32, mask (N,), eps, min_samples, ncx, ncy, column
+    cap). Small enough for the JAX package's kernels in interpret mode."""
+    rng = np.random.RandomState(21)
+
+    def forward(n, n_chains, noise):
+        """Chains at the end of the buffer, their border points at its
+        start, uniform noise between."""
+        chains, borders = _chains_with_forward_borders(n_chains, 9.0)
+        pts = np.zeros((n, 3), np.float32)
+        pts[:n_chains] = borders
+        pts[n_chains:n_chains + noise] = rng.uniform(0, 9.0, (noise, 3))
+        pts[n - len(chains):] = chains
+        mask = np.zeros(n, bool)
+        mask[:n_chains + noise] = True
+        mask[n - len(chains):] = True
+        return pts, mask
+
+    pts, mask = forward(1024, 20, 200)
+    out = [("labels pointing forward", pts, mask, 0.3, 5, 32, 32, 16)]
+
+    # tight blobs, two of them past a cap of 8 in one column, and a third
+    # of all points masked out at random
+    centres = rng.uniform(0.5, 8.5, (30, 2))
+    idx = rng.randint(0, 30, 1500)
+    blob = np.column_stack([centres[idx] + rng.normal(0, 0.08, (1500, 2)),
+                            rng.uniform(0, 1.8, 1500)])
+    full = np.repeat(centres[:2], 20, axis=0) + rng.uniform(-0.02, 0.02,
+                                                            (40, 2))
+    pts = np.zeros((2048, 3), np.float32)
+    pts[:1500] = blob
+    pts[1500:1540] = np.column_stack([full, np.full(40, 0.9)])
+    mask = np.zeros(2048, bool)
+    mask[:1540] = rng.rand(1540) > 1 / 3
+    mask[1500:1540] = True
+    out.append(("dropped and masked points", pts, mask, 0.3, 5, 32, 32, 8))
+
+    out.append(("empty stream", rng.uniform(0, 9, (1024, 3)).astype(
+        np.float32), np.zeros(1024, bool), 0.3, 5, 32, 32, 16))
+
+    pts, mask = forward(2085, 30, 900)
+    out.append(("N not a multiple of the tile", pts, mask, 0.3, 5, 32, 32,
+                16))
+    return out
+
+
+def dense_tail_label_cases():
+    """Stream-order labels and point maps fed to ``dense_tail`` as they are
+    (no clustering): a list of (name, labels (N,) int32, point_stream (N,)
+    int32). Labels point anywhere, forward and back, at representatives
+    and at points that are not (whose rank counts the representatives at
+    or below them), past N - 1, and negative; about a third of the points
+    have no slot (half the representatives keep theirs)."""
+    rng = np.random.RandomState(22)
+
+    def case(name, n, reps):
+        rep = np.sort(rng.choice(n, size=min(reps, n), replace=False))
+        # each point's label in point order: a representative's its own
+        # index, the rest a representative's, or none (INT_MAX), or any
+        # point's, or past N - 1, or negative
+        labels = (rep[rng.randint(0, len(rep), n)] if len(rep)
+                  else np.full(n, 2 ** 31 - 1))
+        odd = rng.rand(n)
+        labels = np.where(odd < 0.1, 2 ** 31 - 1, labels)
+        labels = np.where((odd >= 0.1) & (odd < 0.12),
+                          rng.randint(0, max(n, 1), n), labels)
+        labels = np.where((odd >= 0.12) & (odd < 0.125), n + 5, labels)
+        labels = np.where((odd >= 0.125) & (odd < 0.13), -7, labels)
+        labels[rep] = rep
+        # into stream order, junk at the positions no point reads
+        stream = rng.permutation(n)
+        stream[(rng.rand(n) < 1 / 3) & ~np.isin(np.arange(n), rep[::2])] = -1
+        out = rng.randint(-2, n + 2, n)
+        placed = stream >= 0
+        out[stream[placed]] = labels[placed]
+        return name, out.astype(np.int32), stream.astype(np.int32)
+
+    return [case("no point", 0, 0), case("one point", 1, 1),
+            case("33 points", 33, 4),
+            case("200,003 points", 200_003, 9000),
+            case("1,000,003 points, many words a block", 1_000_003, 40_000),
+            case("no representative", 5000, 0)]

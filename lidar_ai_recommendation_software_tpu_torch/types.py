@@ -35,6 +35,14 @@ class PointCloud:
     points: torch.Tensor
     mask: torch.Tensor
 
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def count(self) -> torch.Tensor:
+        return self.mask.sum(dtype=torch.int32)
+
     @classmethod
     def from_numpy(cls, pts: np.ndarray, capacity: Optional[int] = None,
                    device: torch.device | str = "cpu") -> "PointCloud":
@@ -90,9 +98,10 @@ class ProcessedCloud:
 class People:
     """Per-cluster centroids padded to capacity K.
 
-    ``overflow`` counts clusters dropped because their dense id exceeded
-    K; nonzero means ``count`` undercounts and the pipeline regrows
-    ``max_people``."""
+    ``z`` keeps the centroid height, which temporal tracking reads to drop
+    clusters that hug the ground. ``overflow`` counts clusters dropped
+    because their dense id exceeded K; nonzero means ``count`` undercounts
+    and the pipeline regrows ``max_people``."""
 
     positions: torch.Tensor  # (K, 2) xy centroids
     mask: torch.Tensor       # (K,)   valid people
@@ -102,6 +111,14 @@ class People:
     @property
     def count(self) -> torch.Tensor:
         return self.mask.sum(dtype=torch.int32)
+
+    def person_like(self, min_height: float,
+                    ground_z: torch.Tensor) -> "People":
+        """The people whose centroid sits more than ``min_height`` above
+        the venue floor ``ground_z``; the rest masked out."""
+        keep = self.mask & (self.z - ground_z > min_height)
+        return People(positions=self.positions, mask=keep, z=self.z,
+                      overflow=self.overflow)
 
 
 @dataclasses.dataclass

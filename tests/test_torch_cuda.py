@@ -32,7 +32,8 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
     pointnet as P)
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
-    column_occupancy_cases, place_dense_cases, sa_mlp_pool_cases)
+    column_occupancy_cases, dense_tail_cases, dense_tail_label_cases,
+    place_dense_cases, sa_mlp_pool_cases)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -109,6 +110,10 @@ COLUMN_CASES = {
 # row between full rows, every column full, the largest cap
 COLUMN_CASES.update({case[0].replace(" ", "_"): lambda case=case: case[1:]
                      for case in column_occupancy_cases()})
+# the clusterings that stress the tail: labels pointing forward, dropped and
+# masked points, an empty stream, N not a multiple of the tile
+COLUMN_CASES.update({case[0].replace(" ", "_"): lambda case=case: case[1:]
+                     for case in dense_tail_cases()})
 
 
 @pytest.mark.parametrize("name", sorted(COLUMN_CASES))
@@ -138,12 +143,18 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     assert torch.equal(bmin, C.border_min_reference(*nb, lab))
     got = C.table_gather(bmin, pst, -1)
     assert torch.equal(got, C.table_gather_reference(bmin, pst, -1))
+    final = torch.where(core, lab, bmin)
+    dense, n_clusters = C.dense_tail(final, pst)
+    want_dense, want_n = C.dense_tail_reference(final, pst)
+    assert torch.equal(dense, want_dense) and torch.equal(n_clusters, want_n)
     torch.cuda.synchronize()
     # one union-find pass: the same launches in every clustering
     assert kernels.LAUNCHES["propagate"] == launched == C.PROPAGATE_LAUNCHES
     for k in ("table_fill", "column_counts", "border_min", "table_gather"):
         assert kernels.LAUNCHES[k] == 1, k
-    assert (int(ov) > 0) == (name == "column_overflow")
+    assert kernels.LAUNCHES["dense_tail"] == C.TAIL_LAUNCHES
+    assert (int(ov) > 0) == (name in ("column_overflow",
+                                      "dropped_and_masked_points"))
     if name == "every_column_full":
         occ = torch.bincount(ss.long() // cap, minlength=ncells)
         assert int((occ == cap).sum()) == ncx * ncy
@@ -156,9 +167,10 @@ def test_venue_scale_card_matches_cpu(cuda_device):
     kernels.reset_launch_counts()
     card = Pipeline(device="cuda").analyze(pts)
     torch.cuda.synchronize()
-    for k in ("table_fill", "table_gather", "column_counts", "border_min",
+    for k in ("table_fill", "dense_tail", "column_counts", "border_min",
               "propagate", "radius_count"):
         assert kernels.LAUNCHES[k] > 0, k
+    assert kernels.LAUNCHES["table_gather"] == 0
     cpu = Pipeline(device="cpu").analyze(pts)
     np.testing.assert_array_equal(card["processed"].labels.cpu().numpy(),
                                   cpu["processed"].labels.numpy())
@@ -166,6 +178,25 @@ def test_venue_scale_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(card["density"]["density_grid"],
                                   cpu["density"]["density_grid"])
     assert card["flow"]["bottlenecks"] == cpu["flow"]["bottlenecks"]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in dense_tail_label_cases()])
+def test_dense_tail_matches_plain_version(cuda_device, name):
+    """Labels fed to the tail as they are (forward and back, at points
+    that are not representatives, past N - 1, negative), and a capture in
+    a CUDA graph, whose replay gives the same ids."""
+    labels, stream = {c[0]: c[1:] for c in dense_tail_label_cases()}[name]
+    lab = torch.from_numpy(labels).to(cuda_device)
+    pst = torch.from_numpy(stream).to(cuda_device)
+    want, want_n = C.dense_tail_reference(lab, pst)
+    got, got_n = C.dense_tail(lab, pst)
+    assert torch.equal(got, want) and torch.equal(got_n, want_n)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        again, again_n = C.dense_tail(lab, pst)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(again, want) and torch.equal(again_n, want_n)
 
 
 def test_place_dense_matches_plain_version(cuda_device):
