@@ -77,6 +77,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -180,6 +181,82 @@ SA_BF16_TOL = 2e-2
 # package's CPU values: products, convolutions and per-cell sums round in
 # another order (the JAX package's own tests allow 1e-4 between its routes)
 NEURAL_TOL = 1e-4
+# The default-width training run (TrainConfig(): batch 4 x 8,192 points,
+# seeded weights, make_batch(RandomState(0))'s batches) through the JAX
+# package's train_step on the CPU, from the port's init_state weights
+# carried across (``python3 -m tools.jax_reference_values train``): the
+# digest of those weights, the loss of each of 3 steps on the JAX
+# package's jnp path (use_pallas=False), and the first step's gradient
+# norms on its kernel path (``train --fused``), whose backward the port's
+# mirrors: the jnp path's ReLU gives no gradient at 0, which moves the six
+# set-abstraction bias norms by up to 5.9%.
+JAX_REFERENCE_TRAIN = {
+    "init_sha256": "ffd24ed5c1d3f8e43bc1bc2e52b54989f40cab0c85f6d26fe4c9bf"
+                   "1139068ffd",
+    "losses": [1.625415325164795, 2.09482479095459, 2.060967445373535],
+    "grad_norms": {
+        "bev.Conv_0.bias": 0.16897141933441162,
+        "bev.Conv_0.weight": 0.6320516467094421,
+        "bev.Conv_1.bias": 0.2751879096031189,
+        "bev.Conv_1.weight": 0.5879778861999512,
+        "congestion_head.bias": 0.12768398225307465,
+        "congestion_head.weight": 0.0689377412199974,
+        "congestion_head_hidden.bias": 0.07254975289106369,
+        "congestion_head_hidden.weight": 0.08902706205844879,
+        "count_head.bias": 0.6097748279571533,
+        "count_head.weight": 0.405633807182312,
+        "count_head_hidden.bias": 0.3630157709121704,
+        "count_head_hidden.weight": 0.44166162610054016,
+        "density_head.bias": 0.0021095345728099346,
+        "density_head.weight": 0.0014255908317863941,
+        "density_head_hidden.bias": 0.001315953559242189,
+        "density_head_hidden.weight": 0.0015841452404856682,
+        "flow_head.bias": 0.7848531603813171,
+        "flow_head.weight": 0.42972561717033386,
+        "flow_head_hidden.bias": 0.40548622608184814,
+        "flow_head_hidden.weight": 0.4933907687664032,
+        "sa1.mlp0_bias": 0.007577224168926477,
+        "sa1.mlp0_kernel": 0.00195671827532351,
+        "sa1.mlp1_bias": 0.011747069656848907,
+        "sa1.mlp1_kernel": 0.006907493807375431,
+        "sa1.mlp2_bias": 0.019796334207057953,
+        "sa1.mlp2_kernel": 0.009276816621422768,
+        "sa2.mlp0_bias": 0.0031084760557860136,
+        "sa2.mlp0_kernel": 0.0024987945798784494,
+        "sa2.mlp1_bias": 0.0049230488948524,
+        "sa2.mlp1_kernel": 0.0032497087959200144,
+        "sa2.mlp2_bias": 0.006897623650729656,
+        "sa2.mlp2_kernel": 0.003187773982062936}}
+TRAIN_STEPS = 3
+# Training, the card against the port's CPU run: the first step's loss and
+# each gradient tensor (|g_card - g_cpu| / |g_cpu| over the whole tensor):
+# the same math with sums in another order. Later losses within 1e-4
+# relative, and so are the losses and first gradient norms against the
+# JAX package's (its convolutions' weight gradients sum 16,384 positions
+# in another order: 1.4e-5 apart from the port's on the CPU); parameters
+# within 2 x lr x steps absolute: Adam turns a rounding difference in a
+# near-zero gradient into an update of up to lr.
+TRAIN_GRAD_TOL = 1e-5
+TRAIN_LOSS_TOL = 1e-4
+# One bfloat16 step, card vs CPU: the loss within 3e-6 relative and each
+# gradient tensor within 2.5e-3 relative, between the readings of a sound
+# step (on an H100: the loss equal, the worst gradient 4.4e-4) and those of
+# the control, the card's float32 step against the CPU's bfloat16 step
+# (1.3e-5 and 1.4e-2), which must stay outside both limits
+TRAIN_BF16_LOSS_TOL = 3e-6
+TRAIN_BF16_GRAD_TOL = 2.5e-3
+# Card runs of the training steps held bit-identical to the first. A run
+# differs only when a rare rounding does (the pillar sums of a lone-row
+# scan differed in 49 of 2,500 reruns on an H100,
+# tools/scan_determinism.py), so more than one rerun is made
+TRAIN_RERUNS = 5
+# reruns of the pillar sums' float64 prefix scan of one lone row, each
+# bit-identical to the first (torch.cumsum of that row differed in 65 of
+# 3,000 on an H100, tools/scan_determinism.py)
+PREFIX_RERUNS = 1000
+# the set-abstraction layer of BASELINE.md config 2: 4,096 samples, K = 32,
+# r = 0.6, MLP 3-32-32-64
+LAYER_SAMPLES, LAYER_K, LAYER_R = 4096, 32, 0.6
 # the pipeline's radius_count shapes: (cells a side, people capacity, live
 # people, venue span) at 10,000 (the fixture), 40,960 and 262,144 points
 RADIUS_SHAPES = ((64, 1280, 446, 30.0), (96, 5120, 1786, 60.7),
@@ -1716,14 +1793,14 @@ def run_neural_serving(ident: str) -> dict:
 
 def run_default_model(ident: str) -> None:
     """The default-width CrowdNet (8,192 points, 1,024 and 256 samples,
-    grid 64) on a batch of 4, weights from a numpy seed: the card against
-    the port's CPU run."""
+    grid 64) on a batch of 4, weights drawn from generator seed 11: the
+    card against the port's CPU run."""
     import torch
     from lidar_ai_recommendation_software_tpu_torch.models import train
 
     cfg = train.TrainConfig()
-    cpu_model = train.make_model(cfg).eval()
-    cpu_model.load_state_dict(train.seeded_state_dict(cpu_model, 11))
+    cpu_model = train.make_model(cfg, torch.Generator().manual_seed(11)
+                                 ).eval()
     card_model = train.make_model(cfg).eval()
     card_model.load_state_dict(cpu_model.state_dict())
     card_model.to("cuda")
@@ -1769,26 +1846,19 @@ def run_sa_layer(dev, layer_points, ident: str) -> dict:
     ``fps_single`` -> ``ball_group`` -> ``group_features`` ->
     ``sa_mlp_pool``, the card against the port's CPU run. Returns the
     launch counts of one bfloat16 layer."""
-    import numpy as np
     import torch
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
         kernels, pointnet as P)
     from lidar_ai_recommendation_software_tpu_torch.ops.grouping import (
         ball_group, group_features)
 
-    rng = np.random.RandomState(0)
-    dims = [3, 32, 32, 64]
-    w_np = [((rng.randn(a, b) * 0.1).astype(np.float32),
-             np.zeros(b, np.float32)) for a, b in zip(dims[:-1], dims[1:])]
-
     def layer(p, dtype):
         mask = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
-        w = [(torch.from_numpy(a).to(p.device),
-              torch.from_numpy(b).to(p.device)) for a, b in w_np]
-        idx = P.fps_single(p, mask, 4096)
+        w = layer_weights(p.device)
+        idx = P.fps_single(p, mask, LAYER_SAMPLES)
         cents = p[idx.to(torch.int64)]
         gidx, gvalid = ball_group(cents, mask[idx.to(torch.int64)], p, mask,
-                                  0.6, 32)
+                                  LAYER_R, LAYER_K)
         g = group_features(p, None, cents, gidx, gvalid)
         return idx, gidx, gvalid, P.sa_mlp_pool(g, gvalid, w,
                                                 compute_dtype=dtype)
@@ -1809,7 +1879,7 @@ def run_sa_layer(dev, layer_points, ident: str) -> dict:
                           got, want):
         require(torch.equal(a.cpu(), b), f"layer: {name} differ, card vs CPU")
     err = rel_err(got[3].cpu(), want[3])
-    require(got[3].shape == (4096, 64) and err <= SA_BF16_TOL,
+    require(got[3].shape == (LAYER_SAMPLES, 64) and err <= SA_BF16_TOL,
             f"layer, bfloat16: pooled features off by {err}")
     f32 = layer(layer_points, torch.float32)[3]
     f32_err = rel_err(f32.cpu(), layer(cpu_points, torch.float32)[3])
@@ -1823,6 +1893,429 @@ def run_sa_layer(dev, layer_points, ident: str) -> dict:
         ms = wall_ms(lambda: layer(layer_points, dtype), reps=3)
         print(f"100,000-point layer, {str(dtype).split('.')[1]}: median "
               f"{ms:.3f} ms of 3 (warm, synchronised) on {ident}")
+    return launches
+
+
+def train_steps(cfg, device: str, steps: int) -> tuple:
+    """``steps`` of ``train.train_step`` from ``init_state(cfg)`` on
+    ``device``, on ``make_batch(RandomState(cfg.seed))``'s batches, the
+    launch counts set to 0 just before each step and read just after:
+    (state, losses, the first step's gradients on the CPU, [(launches, fps
+    routes)] a step)."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    state = train.init_state(cfg, device=device)
+    rng = np.random.RandomState(cfg.seed)
+    losses, grads, launches = [], None, []
+    for i in range(steps):
+        batch = train.batch_tensors(train.make_batch(rng, cfg), device)
+        kernels.reset_launch_counts()
+        metrics = train.train_step(state, batch, cfg)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        launches.append((dict(kernels.LAUNCHES), dict(kernels.FPS_ROUTES)))
+        if i == 0:
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in state.model.named_parameters()}
+    return state, losses, grads, launches
+
+
+def require_step_launches(launches, per_step: int, what: str) -> None:
+    """Every step launched ``fps_batched`` and ``sa_mlp_pool``
+    ``per_step`` times each, ``fps_batched`` on the register route, and no
+    other kernel."""
+    for i, (counts, routes) in enumerate(launches):
+        used = {k: v for k, v in counts.items() if v}
+        require(used == {"fps_batched": per_step, "sa_mlp_pool": per_step}
+                and {k: v for k, v in routes.items() if v}
+                == {"registers": per_step},
+                f"{what}, step {i + 1}: launches {used}, fps routes "
+                f"{routes}; {per_step} fps_batched on the register route "
+                f"and {per_step} sa_mlp_pool expected")
+    print(f"{what}: fps_batched {per_step} (register route) and sa_mlp_pool "
+          f"{per_step} launches in each of {len(launches)} steps")
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """|got - want| / |want| of each gradient tensor."""
+    return {n: float((got[n] - want[n]).norm() / want[n].norm().clamp_min(
+        1e-30)) for n in want}
+
+
+def busy_share(fn, reps: int = 3) -> tuple:
+    """(wall ms, device busy ms) a call of ``fn`` over ``reps`` warm calls
+    under ``torch.profiler``: busy is the sum of the kernels' and copies'
+    times (user annotations, such as ``Optimizer.step``'s, also appear on
+    the device's timeline and are left out)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False))
+    return wall, busy / 1e3 / reps
+
+
+def train_step_split(state, batch, cfg, reps: int = 5) -> dict:
+    """Median ms of a training step's forward (``train.step_loss``),
+    backward and optimizer update (``train.apply_update``) over ``reps``
+    warm steps, the device synchronised after each."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+    runs = {"forward": [], "backward": [], "optimizer": []}
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = train.step_loss(state, batch, cfg)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        train.apply_update(state)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if rep:
+            for key, a, b in (("forward", t0, t1), ("backward", t1, t2),
+                              ("optimizer", t2, t3)):
+                runs[key].append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in runs.items()}
+
+
+def require_prefix_reproducible(cfg) -> None:
+    """The BEV head's cell sums scan one lone row (the pillar z sums) in
+    float64: ``_row_prefix_sums`` of that row, from the first training
+    batch, bit-identical over ``PREFIX_RERUNS`` reruns on the card.
+    ``torch.cumsum``'s count of differing reruns on the same row is
+    printed beside it."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import (
+        crowdnet, train)
+    batch = train.batch_tensors(train.make_batch(
+        np.random.RandomState(cfg.seed), cfg), "cuda")
+    row = (batch["points"][..., 2] * batch["mask"].to(torch.float32)
+           ).reshape(1, -1).to(torch.float64)
+    counts = {}
+    for name, fn in (("_row_prefix_sums", crowdnet._row_prefix_sums),
+                     ("torch.cumsum", lambda x: torch.cumsum(x, 1))):
+        first = fn(row)
+        counts[name] = sum(int(not torch.equal(fn(row), first))
+                           for _ in range(PREFIX_RERUNS))
+    print(f"float64 prefix of the pillar sums' lone row {tuple(row.shape)}, "
+          f"reruns differing from the first in {PREFIX_RERUNS}: "
+          f"_row_prefix_sums {counts['_row_prefix_sums']}, torch.cumsum "
+          f"{counts['torch.cumsum']}")
+    require(counts["_row_prefix_sums"] == 0,
+            "training: the cell sums' prefix scan differs between reruns")
+
+
+def run_training(ident: str) -> dict:
+    """CrowdNet's training at the default width (``TrainConfig()``: batch
+    4 x 8,192 points, 1,024 and 256 samples, grid 64, float32) from the
+    seeded ``init_state``: 3 steps on the card and on the port's CPU,
+    against each other, five more card runs (bit-identical, after the
+    cell sums' prefix scan is held bit-identical over reruns) and the JAX
+    package's recorded losses; one bfloat16 step and one remat step; warm step times. Returns
+    the launch counts of one step."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        pointnet as P)
+
+    cfg = train.TrainConfig()
+    digest = train.weights_digest(
+        train.init_state(cfg, device="cuda").model.state_dict())
+    require(digest == JAX_REFERENCE_TRAIN["init_sha256"],
+            f"init_state's weights (sha256 {digest}) are not those the JAX "
+            f"package's losses were recorded from")
+    print(f"TrainConfig(): batch {cfg.batch_size} x {cfg.n_points:,} "
+          f"points, {cfg.sa1_samples} and {cfg.sa2_samples} samples, grid "
+          f"{cfg.grid}, lr {cfg.learning_rate}, bf16 {cfg.bf16}")
+    # the backward recomputes through sa_mlp_pool_reference (no backward
+    # kernel, as in the JAX package): count its calls inside and outside
+    # the backward apart
+    calls = {"forward": 0, "backward": 0}
+    in_backward = []
+    backward, reference = P._SaMlpPool.backward, P.sa_mlp_pool_reference
+
+    def counted_backward(ctx, ct):
+        in_backward.append(True)
+        try:
+            return backward(ctx, ct)
+        finally:
+            in_backward.pop()
+
+    def counted_reference(*args, **kwargs):
+        calls["backward" if in_backward else "forward"] += 1
+        return reference(*args, **kwargs)
+
+    with mock.patch.object(P, "fps_reference", wraps=P.fps_reference) as f, \
+            mock.patch.object(P, "sa_mlp_pool_reference", counted_reference), \
+            mock.patch.object(P._SaMlpPool, "backward",
+                              staticmethod(counted_backward)):
+        card, losses, grads, launches = train_steps(cfg, "cuda",
+                                                    TRAIN_STEPS)
+    require(f.call_count == 0 and calls["forward"] == 0,
+            f"a plain forward ran on the card: fps_reference "
+            f"{f.call_count}, sa_mlp_pool_reference {calls['forward']} "
+            f"calls outside the backward")
+    require(calls["backward"] == 2 * TRAIN_STEPS,
+            f"sa_mlp_pool's backward recomputed {calls['backward']} times "
+            f"in {TRAIN_STEPS} steps, {2 * TRAIN_STEPS} expected")
+    require_step_launches(launches, 2, "training on the card")
+    require(all(math.isfinite(x) for x in losses) and all(
+        bool(torch.isfinite(p).all()) for p in card.model.parameters()),
+        "training: losses and parameters finite")
+    t0 = time.perf_counter()
+    cpu, cpu_losses, cpu_grads, _ = train_steps(cfg, "cpu", TRAIN_STEPS)
+    print(f"the port's CPU run of {TRAIN_STEPS} steps took "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"losses: card {losses}, CPU {cpu_losses}, JAX package "
+          f"(recorded) {JAX_REFERENCE_TRAIN['losses']}")
+    first = abs(losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+    require(first <= TRAIN_GRAD_TOL,
+            f"training: first loss off by {first:.3e} card vs CPU")
+    errs = grad_errors(grads, cpu_grads)
+    worst = max(errs, key=errs.get)
+    print(f"first-step gradients, card vs CPU: {len(errs)} tensors, worst "
+          f"{errs[worst]:.3e} ({worst}), tolerance {TRAIN_GRAD_TOL}; "
+          f"largest five: " + ", ".join(
+              f"{n} {e:.2e}" for n, e in sorted(
+                  errs.items(), key=lambda kv: -kv[1])[:5]))
+    require(errs[worst] <= TRAIN_GRAD_TOL,
+            f"training: gradient {worst} off by {errs[worst]:.3e}")
+    ref = JAX_REFERENCE_TRAIN["grad_norms"]
+    norm_errs = {n: abs(float(g.norm()) - ref[n]) / ref[n]
+                 for n, g in grads.items()}
+    worst = max(norm_errs, key=norm_errs.get)
+    print(f"first-step gradient norms against the JAX package's kernel "
+          f"path: worst {norm_errs[worst]:.3e} ({worst}), tolerance "
+          f"{TRAIN_LOSS_TOL}")
+    require(set(ref) == set(grads) and norm_errs[worst] <= TRAIN_LOSS_TOL,
+            f"training: gradient norm of {worst} off the JAX package's by "
+            f"{norm_errs[worst]:.3e}")
+    for name, ref in (("the CPU", cpu_losses),
+                      ("the JAX package", JAX_REFERENCE_TRAIN["losses"])):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        print(f"losses within {rel:.3e} relative of {name}'s "
+              f"(tolerance {TRAIN_LOSS_TOL})")
+        require(rel <= TRAIN_LOSS_TOL, f"training: losses off {name}'s by "
+                f"{rel:.3e}")
+    atol = 2 * cfg.learning_rate * TRAIN_STEPS
+    cpu_params = dict(cpu.model.named_parameters())
+    dp = max(float((p.detach().cpu() - cpu_params[n].detach()).abs().max())
+             for n, p in card.model.named_parameters())
+    print(f"parameters after {TRAIN_STEPS} steps within {dp:.3e} of the CPU "
+          f"run's (tolerance {atol:.1e} = 2 lr steps)")
+    require(dp <= atol, f"training: parameters off by {dp:.3e}")
+    require_prefix_reproducible(cfg)
+    for run in range(TRAIN_RERUNS):
+        again, again_losses, _, _ = train_steps(cfg, "cuda", TRAIN_STEPS)
+        require(again_losses == losses and all(
+            torch.equal(p, q) for p, q in zip(card.model.parameters(),
+                                              again.model.parameters())),
+            f"training: card run {run + 2} differs from the first "
+            f"(losses {again_losses})")
+    print(f"{TRAIN_RERUNS} more card runs bit-identical to the first: "
+          f"losses and every parameter")
+
+    bf_cfg = dataclasses.replace(cfg, bf16=True)
+    _, bf_losses, bf_grads, bf_launches = train_steps(bf_cfg, "cuda", 1)
+    require_step_launches(bf_launches, 2, "one bfloat16 step on the card")
+    _, bf_cpu_losses, bf_cpu_grads, _ = train_steps(bf_cfg, "cpu", 1)
+    bf_loss = abs(bf_losses[0] - bf_cpu_losses[0]) / abs(bf_cpu_losses[0])
+    bf_errs = grad_errors(bf_grads, bf_cpu_grads)
+    bf_worst = max(bf_errs, key=bf_errs.get)
+    print(f"bfloat16 step, card vs CPU: loss {bf_losses[0]} vs "
+          f"{bf_cpu_losses[0]} ({bf_loss:.3e}, tolerance "
+          f"{TRAIN_BF16_LOSS_TOL}); gradients worst {bf_errs[bf_worst]:.3e} "
+          f"({bf_worst}, tolerance {TRAIN_BF16_GRAD_TOL})")
+    require(bf_loss <= TRAIN_BF16_LOSS_TOL
+            and bf_errs[bf_worst] <= TRAIN_BF16_GRAD_TOL,
+            "training: the bfloat16 step off the CPU's")
+    # the control: the card's float32 first step against the CPU's
+    # bfloat16 step on the same weights and batch, the readings of a card
+    # that ignored bf16=True
+    ctl_loss = abs(losses[0] - bf_cpu_losses[0]) / abs(bf_cpu_losses[0])
+    ctl_errs = grad_errors(grads, bf_cpu_grads)
+    ctl_worst = max(ctl_errs, key=ctl_errs.get)
+    print(f"control, the card's float32 step vs the CPU's bfloat16 step: "
+          f"loss {ctl_loss:.3e}, gradients worst {ctl_errs[ctl_worst]:.3e} "
+          f"({ctl_worst}), median "
+          f"{statistics.median(ctl_errs.values()):.3e}")
+    require(ctl_loss > TRAIN_BF16_LOSS_TOL
+            and ctl_errs[ctl_worst] > TRAIN_BF16_GRAD_TOL,
+            "training: a float32 step passes the bfloat16 step's limits")
+
+    _, re_losses, re_grads, re_launches = train_steps(
+        dataclasses.replace(cfg, remat=True), "cuda", 1)
+    require_step_launches(re_launches, 4, "one remat step on the card")
+    require(re_losses[0] == losses[0] and all(
+        torch.equal(re_grads[n], grads[n]) for n in grads),
+        "training: the remat step's loss or gradients differ")
+    print("remat step: loss and every gradient equal to the plain step's")
+
+    batch = train.batch_tensors(train.make_batch(
+        np.random.RandomState(cfg.seed), cfg), "cuda")
+    ms = wall_ms(lambda: train.train_step(card, batch, cfg))
+    split = train_step_split(card, batch, cfg)
+    wall, busy = busy_share(lambda: train.train_step(card, batch, cfg))
+    print(f"training step, {cfg.batch_size} x {cfg.n_points:,} points: "
+          f"median {ms:.3f} ms of 5 "
+          f"(warm, synchronised), {1e3 / ms:.3f} steps/s, "
+          f"{cfg.batch_size * 1e3 / ms:.3f} venues/s on {ident}")
+    print("training step split (medians of 5, synchronised): " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in split.items()))
+    print(f"training step under the profiler: wall {wall:.3f} ms, device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    return launches[0][0]
+
+
+def layer_weights(dev) -> list:
+    """The 100,000-point layer's MLP 3-32-32-64 (numpy seed 0, zero
+    biases)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    dims = [3, 32, 32, 64]
+    return [(torch.from_numpy((rng.randn(a, b) * 0.1).astype(np.float32))
+             .to(dev), torch.zeros(b, device=dev))
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def run_hashgrid(dev, layer_points, ident: str) -> dict:
+    """The hash-grid ball query: on the 100,000-point layer asked for by
+    name, and on a 1,000,000-point layer through "auto"; the card's
+    indices and validity against the port's CPU hash grid on the same
+    centroids (the card's FPS), the hash grid timed against the dense
+    route at 100,000 points and the whole 1M layer timed. Returns the
+    launch counts of one 1M layer."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch import scaled_venue
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        kernels, pointnet as P)
+    from lidar_ai_recommendation_software_tpu_torch.ops.grouping import (
+        BRUTEFORCE_MAX_SOURCE, ball_group, group_features)
+
+    def centroids(p):
+        mask = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+        idx = P.fps_single(p, mask, LAYER_SAMPLES).to(torch.int64)
+        return mask, p[idx], mask[idx]
+
+    def check_on_cpu(p, mask, cents, cmask, got, method, what):
+        t0 = time.perf_counter()
+        want = ball_group(cents.cpu(), cmask.cpu(), p.cpu(), mask.cpu(),
+                          LAYER_R, LAYER_K, method=method)
+        for name, a, b in zip(("indices", "validity"), got, want):
+            require(torch.equal(a.cpu(), b),
+                    f"{what}: hash-grid {name} differ, card vs CPU")
+        print(f"{what}: hash-grid indices and validity equal on the card "
+              f"and the CPU ({int(got[1].sum())} of {got[1].numel()} slots "
+              f"valid; the CPU's query took "
+              f"{time.perf_counter() - t0:.3f} s)")
+
+    mask, cents, cmask = centroids(layer_points)
+    got = ball_group(cents, cmask, layer_points, mask, LAYER_R, LAYER_K,
+                     method="hashgrid")
+    check_on_cpu(layer_points, mask, cents, cmask, got, "hashgrid",
+                 "100,000-point layer")
+    dense = ball_group(cents, cmask, layer_points, mask, LAYER_R, LAYER_K,
+                       method="dense")
+    fewer = int((got[1].sum(1) != dense[1].sum(1)).sum())
+    print(f"100,000-point layer: {fewer} of {LAYER_SAMPLES} centroids count "
+          f"other neighbours (up to K) on the hash grid than on the dense "
+          f"route (a voxel past its 64-point bucket)")
+    for method in ("dense", "hashgrid"):
+        ms = wall_ms(lambda: ball_group(cents, cmask, layer_points, mask,
+                                        LAYER_R, LAYER_K, method=method))
+        print(f"ball_group {method}, 100,000 points, {LAYER_SAMPLES} "
+              f"queries: median {ms:.3f} ms of 5 (warm, synchronised) on "
+              f"{ident}")
+
+    big = torch.from_numpy(np.ascontiguousarray(
+        scaled_venue(1_000_000)[:, :3], dtype=np.float32)).to(dev)
+    require(big.shape[0] > BRUTEFORCE_MAX_SOURCE, "the 1M layer's size")
+    w = layer_weights(dev)
+
+    def layer():
+        m, c, cm = centroids(big)
+        gidx, gvalid = ball_group(c, cm, big, m, LAYER_R, LAYER_K)
+        g = group_features(big, None, c, gidx, gvalid)
+        return m, c, cm, gidx, gvalid, P.sa_mlp_pool(
+            g, gvalid, w, compute_dtype=torch.bfloat16)
+
+    out, launches = traced(layer, "1,000,000-point layer")
+    routes = {k: v for k, v in kernels.FPS_ROUTES.items() if v}
+    require(launches["fps_single"] == 1 and launches["sa_mlp_pool"] == 1
+            and routes == {"stream": 1},
+            f"the 1M layer: launches {launches}, fps routes {routes}")
+    m, c, cm, gidx, gvalid, pooled = out
+    # the layer's FPS against its plain version on the card (the CPU's
+    # would take minutes at 1M points)
+    t0 = time.perf_counter()
+    want = P.fps_reference(big, m, LAYER_SAMPLES)
+    plain_s = time.perf_counter() - t0
+    require(torch.equal(P.fps_single(big, m, LAYER_SAMPLES), want)
+            and torch.equal(c, big[want.to(torch.int64)]),
+            "the 1M layer: fps_single's samples differ from fps_reference's")
+    print(f"1,000,000-point layer: fps_single's {LAYER_SAMPLES} samples "
+          f"(streaming route) equal to fps_reference's on the card (the "
+          f"plain version took {plain_s:.3f} s)")
+    check_on_cpu(big, m, c, cm, (gidx, gvalid), "auto",
+                 "1,000,000-point layer")
+    g = group_features(big.cpu(), None, c.cpu(), gidx.cpu(), gvalid.cpu())
+    want = P.sa_mlp_pool(g, gvalid.cpu(), [(a.cpu(), b.cpu()) for a, b in w],
+                         compute_dtype=torch.bfloat16)
+    err = rel_err(pooled.cpu(), want)
+    require(pooled.shape == (LAYER_SAMPLES, 64) and err <= SA_BF16_TOL
+            and bool(torch.isfinite(pooled).all()),
+            f"the 1M layer's pooled features off by {err}")
+    print(f"1,000,000-point layer: pooled features within {err:.3e} of the "
+          f"CPU's on the same groups (tolerance {SA_BF16_TOL})")
+    stages = {}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, c, cm = centroids(big)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gidx, gvalid = ball_group(c, cm, big, m, LAYER_R, LAYER_K)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        P.sa_mlp_pool(group_features(big, None, c, gidx, gvalid), gvalid, w,
+                      compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, a, b in (("fps_single", t0, t1), ("ball_group", t1, t2),
+                        ("group_features + sa_mlp_pool", t2, t3)):
+            stages.setdefault(k, []).append((b - a) * 1e3)
+    n = big.shape[0]
+    fps_ms = statistics.median(stages["fps_single"])
+    b_ms, b_by = bound(13 * n + 4 * LAYER_SAMPLES,
+                       9.0 * n * (LAYER_SAMPLES - 1))
+    print(f"fps_single at {n:,} points (streaming route): {fps_ms:.3f} ms, "
+          f"{1e3 * fps_ms / (LAYER_SAMPLES - 1):.3f} us a step, against a "
+          f"bound of {b_ms:.6f} ms ({b_by})")
+    ms = wall_ms(layer, reps=3)
+    print(f"1,000,000-point layer, bfloat16: median {ms:.3f} ms of 3 (warm, "
+          f"synchronised) on {ident}; stages (medians of 3): " + ", ".join(
+              f"{k} {statistics.median(v):.3f} ms"
+              for k, v in stages.items()))
     return launches
 
 
@@ -2125,6 +2618,17 @@ def main() -> int:
     launches_layer = run_sa_layer(dev, layer_points, ident)
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
+    phase("CrowdNet training at the default width, card vs the port on the "
+          "CPU")
+    t0 = time.perf_counter()
+    launches_train = run_training(ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
+    phase("hash-grid ball query: the 100,000- and 1,000,000-point layers")
+    t0 = time.perf_counter()
+    launches_layer_1m = run_hashgrid(dev, layer_points, ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
     phase("3,000,000-point scan on the card and place_dense")
     t0 = time.perf_counter()
     venues[3_000_000], launches_3m, placed = run_scan_3m(pipe, ident)
@@ -2156,7 +2660,8 @@ def main() -> int:
     # launches: place_dense in the 3M scan's analyze, fps_single in the
     # 100,000-point layer, fps_batched and sa_mlp_pool in one served analyze
     # (their times and bounds: the mean over that analyze's two launch
-    # shapes)
+    # shapes); beside them, the launches of one default-width training
+    # step and of the 1,000,000-point layer
     for k, launches, rec in (
             ("place_dense", launches_3m, placed),
             ("fps_single", launches_layer, {**fps["fps_single"],
@@ -2165,9 +2670,12 @@ def main() -> int:
                                               "library_ms": None}),
             ("sa_mlp_pool", launches_neural, {**sa, "library_ms": None})):
         require(launches[k] > 0, f"{k} was not launched on its path")
+        extra = {f"{path}_launches": counts[k] for path, counts in (
+            ("train_step", launches_train), ("layer_1m", launches_layer_1m))
+            if counts[k]}
         records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
                             replaces=KERNELS[k][1], launches=launches[k],
-                            **rec))
+                            **rec, **extra))
     require([r["name"] for r in records] == list(KERNELS), "kernel records")
     require(all(r["graph_ms"] > 0 for r in records),
             "every kernel timed from a CUDA graph")

@@ -21,21 +21,26 @@ carries a flax parameter tree into this module's ``state_dict``. Layouts at
 the public functions are the JAX package's: BEV maps are (B, G, G[, C]),
 channels last.
 
-Each set-abstraction layer goes through ``fps_batched`` and ``sa_mlp_pool``
-(``ops/cuda/pointnet.py``): the CUDA kernels for tensors on a card, their
-plain versions for CPU tensors. The model serves; it has no backward
-through the kernels yet (ROADMAP.md, queue 1, item 10).
+Each set-abstraction layer goes through ``fps_batched`` and
+``sa_mlp_pool_trainable`` (``ops/cuda/pointnet.py``): the CUDA kernels for
+tensors on a card, their plain versions for CPU tensors; the pool's
+backward recomputes its plain twin, as the JAX package's custom VJP does.
+The model trains: ``remat=True`` recomputes each set-abstraction layer in
+the backward (``nn.remat`` there), and ``init_weights`` draws a fresh
+model as flax initialises one.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.pointnet import (
-    fps_batched, sa_mlp_pool)
+    fps_batched, sa_mlp_pool_trainable)
 from lidar_ai_recommendation_software_tpu_torch.ops.grouping import (
     ball_group, group_features)
 
@@ -65,16 +70,16 @@ class SetAbstraction(nn.Module):
         self.dtype = dtype
         dims = [3 + in_channels] + list(mlp)
         for li, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
-            self.register_parameter(
-                f"mlp{li}_kernel",
-                nn.Parameter(torch.randn(a, b) / float(a) ** 0.5))
+            self.register_parameter(f"mlp{li}_kernel",
+                                    nn.Parameter(torch.empty(a, b)))
             self.register_parameter(f"mlp{li}_bias",
                                     nn.Parameter(torch.zeros(b)))
 
     def sample(self, points: torch.Tensor, mask: torch.Tensor
                ) -> torch.Tensor:
-        """Farthest-point sampling of every cloud: (B, M) int32."""
-        return fps_batched(points, mask, self.n_samples)
+        """Farthest-point sampling of every cloud: (B, M) int32, a
+        selection no gradient passes (the JAX package's stop_gradient)."""
+        return fps_batched(points.detach(), mask, self.n_samples)
 
     def group(self, points: torch.Tensor, features: Optional[torch.Tensor],
               mask: torch.Tensor, idx: torch.Tensor):
@@ -102,9 +107,9 @@ class SetAbstraction(nn.Module):
         b, m, k, cin = grouped.shape
         weights = [(getattr(self, f"mlp{li}_kernel"),
                     getattr(self, f"mlp{li}_bias")) for li in range(3)]
-        pooled = sa_mlp_pool(grouped.reshape(b * m, k, cin),
-                             gvalid.reshape(b * m, k), weights,
-                             compute_dtype=self.dtype).reshape(b, m, -1)
+        pooled = sa_mlp_pool_trainable(
+            grouped.reshape(b * m, k, cin), gvalid.reshape(b * m, k),
+            weights, compute_dtype=self.dtype).reshape(b, m, -1)
         return torch.where(cmask[..., None], pooled, 0.0)
 
     def forward(self, points: torch.Tensor,
@@ -141,12 +146,27 @@ def _segment_sums(values: torch.Tensor, flat: torch.Tensor, g: int
     ids = (flat + torch.arange(b, device=flat.device)[:, None] * cells
            ).reshape(-1)
     order = torch.sort(ids, stable=True).indices
-    cols = values.reshape(b * n, c)[order].T.to(torch.float64).contiguous()
-    prefix = torch.nn.functional.pad(torch.cumsum(cols, 1), (1, 0))
+    cols = values.reshape(b * n, c)[order].T.to(torch.float64)
+    prefix = torch.nn.functional.pad(_row_prefix_sums(cols), (1, 0))
     cnts = torch.bincount(ids, minlength=b * cells)
     end = torch.cumsum(cnts, 0)
     sums = (prefix[:, end] - prefix[:, end - cnts]).T.to(values.dtype)
     return sums.reshape(b, cells, c)[:, :-1]
+
+
+def _row_prefix_sums(cols: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along each row of ``cols`` (R, L), the same
+    bits on every run. On CUDA PyTorch scans a lone row with CUB's
+    device-wide scan, whose decoupled look-back adds the tiles' sums in an
+    order that varies from run to run (on an H100 the prefix of one
+    32,768-long row differed from the first in 65 of 3,000 reruns, and
+    the pillar sums built on it in 49 of 2,500: tools/scan_determinism.py);
+    two or more rows take its row-scan kernel, whose order is fixed. So a
+    lone row is scanned beside a row of zeros."""
+    if cols.shape[0] == 1:
+        return torch.cumsum(torch.cat([cols, torch.zeros_like(cols)]),
+                            1)[:1]
+    return torch.cumsum(cols.contiguous(), 1)
 
 
 def _cell_counts(flat: torch.Tensor, g: int) -> torch.Tensor:
@@ -241,16 +261,54 @@ class BEVHead(nn.Module):
                           coords], dim=-1)
 
 
+def _exact_cudnn():
+    """cuDNN in full float32 precision (no TF32) with deterministic
+    algorithms, for this context only; no global switch is set."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+class _Conv2d(torch.autograd.Function):
+    """A stride-1 convolution whose forward and backward both run under
+    ``_exact_cudnn``: autograd runs a backward after the forward's context
+    has closed, under the global defaults (TF32, any algorithm)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding):
+        ctx.save_for_backward(x, weight)
+        ctx.padding = padding
+        with _exact_cudnn():
+            return torch.nn.functional.conv2d(x, weight, bias,
+                                              padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        with _exact_cudnn():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]], [1, 1],
+                list(ctx.padding), [1, 1], False, [0, 0], 1,
+                list(ctx.needs_input_grad[:3]))
+        return gx, gw, gb, None
+
+
 def _conv(x: torch.Tensor, conv: nn.Conv2d,
           dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``conv`` on x (B, C, H, W) with operands of ``dtype``, in full
-    float32 precision on a card: cuDNN runs float32 convolutions in TF32
-    unless told otherwise, and only inside this call is it told."""
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                    deterministic=True, allow_tf32=False):
-        return torch.nn.functional.conv2d(
-            x, conv.weight.to(dtype), conv.bias.to(dtype),
-            padding=conv.padding)
+    float32 precision on a card, its backward included."""
+    return _Conv2d.apply(x, conv.weight.to(dtype), conv.bias.to(dtype),
+                         conv.padding)
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal draws truncated to [-2, 2], by the inverse CDF of
+    float64 uniforms from ``generator`` (``nn.init.trunc_normal_`` drew
+    other numbers from the same generator under PyTorch 2.11 and 2.13)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    x = math.sqrt(2.0) * torch.special.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo))
+                                              - 1.0)
+    return x.clamp(-2.0, 2.0).to(torch.float32)
 
 
 class CrowdNet(nn.Module):
@@ -262,9 +320,11 @@ class CrowdNet(nn.Module):
              ("count_head", 1))
 
     def __init__(self, sa1_samples: int = 2048, sa2_samples: int = 512,
-                 grid: int = 64, dtype: torch.dtype = torch.float32):
+                 grid: int = 64, dtype: torch.dtype = torch.float32,
+                 remat: bool = False,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.grid = grid
+        self.grid, self.remat = grid, remat
         self.sa1 = SetAbstraction(sa1_samples, 0.4, 32, (32, 32, 64), 0,
                                   dtype=dtype)
         self.sa2 = SetAbstraction(sa2_samples, 1.0, 32, (64, 64, 128), 64,
@@ -274,8 +334,30 @@ class CrowdNet(nn.Module):
             self.add_module(f"{name}_hidden",
                             nn.Conv2d(self.bev.out_channels, 32, 1))
             self.add_module(name, nn.Conv2d(32, ch, 1))
-        # softplus(-3) is about 0.05 people/m^2, the typical mean label
-        nn.init.constant_(self.density_head.bias, -3.0)
+        self.init_weights(generator or torch.Generator().manual_seed(0))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Every parameter as flax initialises it, drawn from
+        ``generator`` (a CPU generator; parameters in module order): MLP
+        and convolution kernels ``lecun_normal``, a normal truncated at
+        two standard deviations with variance 1 / fan-in (a convolution's
+        fan-in is in x kh x kw); biases 0, ``density_head``'s -3
+        (softplus(-3) is about 0.05 people/m^2, the typical mean label)."""
+        for name, p in self.named_parameters():
+            if name.endswith("bias"):
+                p.fill_(-3.0 if name == "density_head.bias" else 0.0)
+                continue
+            fan_in = p.shape[0] if p.ndim == 2 else math.prod(p.shape[1:])
+            # flax's stddev correction for the truncation at 2 sigma
+            std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+            p.copy_(_truncated_normal(p.shape, generator) * std)
+
+    def _set_abstraction(self, sa, points, features, mask) -> Level:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(sa, points, features, mask,
+                              use_reentrant=False)
+        return sa(points, features, mask)
 
     def _head(self, name: str, h: torch.Tensor) -> torch.Tensor:
         hid = torch.relu(_conv(h, getattr(self, f"{name}_hidden")))
@@ -284,8 +366,8 @@ class CrowdNet(nn.Module):
     def forward(self, points: torch.Tensor, mask: torch.Tensor,
                 venue_min: torch.Tensor, venue_size: torch.Tensor
                 ) -> Dict[str, torch.Tensor]:
-        c1, f1, m1 = self.sa1(points, None, mask)
-        c2, f2, m2 = self.sa2(c1, f1, m1)
+        c1, f1, m1 = self._set_abstraction(self.sa1, points, None, mask)
+        c2, f2, m2 = self._set_abstraction(self.sa2, c1, f1, m1)
         h = self.bev([(c1, f1, m1), (c2, f2, m2)], points, mask, venue_min,
                      venue_size).permute(0, 3, 1, 2)
         density = _softplus(self._head("density_head", h))[..., 0]

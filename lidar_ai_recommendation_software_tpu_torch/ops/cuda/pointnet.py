@@ -5,7 +5,10 @@ PyTorch versions.
 The counterparts of the JAX package's ``ops/pallas/kernels.py``: ``fps``
 (``_fps_single``, ``_fps_batched``) and ``sa_mlp_pool``. The kernels are
 ``csrc/fps.cu`` (three bodies, picked per cloud size by ``fps_plan``) and
-``csrc/sa_mlp_pool.cu``.
+``csrc/sa_mlp_pool.cu``. ``sa_mlp_pool_trainable`` puts the pool under
+autograd: the kernel forward, a backward through its differentiable
+plain version ``sa_mlp_pool_reference`` (no backward kernel: the JAX
+package's backward is plain jnp too).
 
 As in ``kernels.py``: a CPU tensor takes the plain version, a CUDA tensor
 the kernel (or an error); each launch adds one to ``LAUNCHES``
@@ -289,13 +292,20 @@ def sa_mlp_pool_reference(grouped: torch.Tensor, valid: torch.Tensor,
                           weights: Weights,
                           compute_dtype: torch.dtype = torch.float32
                           ) -> torch.Tensor:
-    """Plain version of ``sa_mlp_pool``."""
+    """Plain version of ``sa_mlp_pool``, differentiable: the counterpart
+    of the JAX package's ``_sa_jnp_math``. Each layer's operands rounded to
+    ``compute_dtype`` and the products summed in float32, ReLU as
+    ``maximum(x, 0)`` (half the gradient at 0, as ``jnp.maximum``), an
+    additive ``(valid - 1) * 1e9`` penalty, the max over the neighbours
+    (``amax`` splits the gradient evenly among ties, as JAX's reduce-max
+    does), and 0 for a centroid with no valid neighbour."""
     x = grouped.to(torch.float32)
+    zero = x.new_zeros(())
     for w, b in weights:
-        x = torch.relu(_operand(x, compute_dtype)
-                       @ _operand(w.to(torch.float32), compute_dtype)
-                       + b.to(torch.float32))
-    x = torch.where(valid[..., None], x, -torch.inf)
+        x = torch.maximum(_operand(x, compute_dtype)
+                          @ _operand(w.to(torch.float32), compute_dtype)
+                          + b.to(torch.float32), zero)
+    x = x + (valid[..., None].to(torch.float32) - 1.0) * 1e9
     return torch.where(valid.any(1)[:, None], x.amax(1), 0.0)
 
 
@@ -341,3 +351,43 @@ def sa_mlp_pool(grouped: torch.Tensor, valid: torch.Tensor, weights: Weights,
         LAUNCHES["sa_mlp_pool"] += 1
     _raise_on(err, "sa_mlp_pool")
     return out
+
+
+class _SaMlpPool(torch.autograd.Function):
+    """``sa_mlp_pool`` forward; the backward recomputes the activations
+    with ``sa_mlp_pool_reference`` and takes its gradient. Only the inputs
+    are saved: the (M, K, hidden) activations exist only inside each
+    pass."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, grouped, valid, *flat):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(grouped, valid, *flat)
+        return sa_mlp_pool(grouped, valid, list(zip(flat[::2], flat[1::2])),
+                           compute_dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        grouped, valid, *flat = ctx.saved_tensors
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_() for t in (grouped, *flat)]
+            out = sa_mlp_pool_reference(args[0], valid,
+                                        list(zip(args[1::2], args[2::2])),
+                                        ctx.compute_dtype)
+            grads = torch.autograd.grad(out, args, ct)
+        return (None, grads[0], None, *grads[1:])
+
+
+def sa_mlp_pool_trainable(grouped: torch.Tensor, valid: torch.Tensor,
+                          weights: Weights,
+                          compute_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
+    """``sa_mlp_pool`` under autograd, the counterpart of the JAX
+    package's ``sa_mlp_pool_trainable``: the forward is the CUDA kernel for
+    card tensors (the plain version for CPU tensors), the backward the
+    gradient of ``sa_mlp_pool_reference`` on the saved inputs. Gradients reach
+    ``grouped`` and the six weights, none ``valid``."""
+    if len(weights) != 3:
+        raise ValueError("sa_mlp_pool is specialised to 3 MLP layers")
+    return _SaMlpPool.apply(compute_dtype, grouped, valid,
+                            *(t for pair in weights for t in pair))

@@ -1,13 +1,17 @@
 """Ball-query grouping for set-abstraction layers.
 
 ``ball_group``: for M query centroids over N source points, up to K
-neighbour indices within radius r, the PointNet++ grouping primitive. The
-dense backend is ported: a chunked (M_chunk, N) masked distance pass and a
-top-k that selects the first K hits in scan order, exact, for sources of up
-to ``BRUTEFORCE_MAX_SOURCE`` points. The JAX package's second backend, the
-voxel hash grid for larger sources (``ops/hashgrid.py``), is not ported
-yet: asking for it raises ``NotImplementedError`` (ROADMAP.md, queue 1,
-item 10).
+neighbour indices within radius r, the PointNet++ grouping primitive. Two
+backends, picked by the source count as the JAX package picks them:
+
+  - dense, up to ``BRUTEFORCE_MAX_SOURCE`` sources: a chunked (M_chunk, N)
+    masked distance pass and a top-k that selects the first K hits in
+    index order; exact.
+  - hashgrid above it (``ops/hashgrid.py``): voxel bucketing and a scan of
+    the 3^3 adjacent voxels. It selects the first K hits in voxel-scan
+    order, another K-subset than the dense one when a neighbourhood holds
+    more than K, and each adjacent voxel gives at most ``bucket_capacity``
+    candidates.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ from typing import Optional, Tuple
 
 import torch
 
-# Above this source count the JAX package switches to the hash grid.
+from lidar_ai_recommendation_software_tpu_torch.ops import hashgrid
+
+# Above this source count "auto" takes the hash grid.
 BRUTEFORCE_MAX_SOURCE = 262_144
 
 INT_MIN = -2 ** 31
@@ -24,26 +30,27 @@ INT_MIN = -2 ** 31
 
 def ball_group(queries: torch.Tensor, qmask: torch.Tensor,
                points: torch.Tensor, pmask: torch.Tensor, radius: float,
-               k: int, chunk: int = 512, method: str = "auto"
+               k: int, chunk: int = 512, method: str = "auto",
+               bucket_capacity: int = 64
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (idx (M, K) int32, valid (M, K) bool).
 
-    The first K source points within ``radius`` of each query, in index
-    order. Slots beyond the neighbour count repeat the first neighbour
-    (the usual PointNet++ padding, so pooled features are unaffected);
-    a query that is masked or has no neighbour returns index 0 and
-    valid False everywhere. ``method``: "auto" or "dense"; "hashgrid", and
-    "auto" above ``BRUTEFORCE_MAX_SOURCE`` source points, raise
-    ``NotImplementedError``."""
+    Up to K source points within ``radius`` of each query: the first K in
+    index order (dense) or in voxel-scan order (hashgrid). Slots beyond
+    the neighbour count repeat the first neighbour (the usual PointNet++
+    padding, so pooled features are unaffected); a query that is masked or
+    has no neighbour returns index 0 and valid False everywhere.
+    ``method``: "auto" (dense up to ``BRUTEFORCE_MAX_SOURCE`` source
+    points, hashgrid above), "dense" or "hashgrid"."""
     if method not in ("auto", "dense", "hashgrid"):
         raise ValueError(f"unknown ball_group method {method!r}")
     m, n = queries.shape[0], points.shape[0]
     if method == "hashgrid" or (method == "auto"
                                 and n > BRUTEFORCE_MAX_SOURCE):
-        raise NotImplementedError(
-            "the hash-grid ball query (ops/hashgrid.py of the JAX package) "
-            "is not ported yet: ROADMAP.md, queue 1, item 10. Pass "
-            "method='dense' for an exact all-pairs query")
+        grid = hashgrid.build_grid(points, pmask, cell_size=radius)
+        idx, val = hashgrid.ball_query(grid, queries, qmask, radius, k,
+                                       bucket_capacity=bucket_capacity)
+        return torch.where(val, idx, idx[:, :1]), val
     # r^2 is float32(r) squared in float32, as the JAX package squares it
     # (a third rounding beside radius_count's and the column kernels')
     r = torch.tensor(radius, dtype=points.dtype, device=points.device)

@@ -29,6 +29,7 @@ from lidar_ai_recommendation_software_tpu.ops import sampling as jsm
 from lidar_ai_recommendation_software_tpu.synthetic import sample_venue
 from lidar_ai_recommendation_software_tpu_torch import neural as tneural
 from lidar_ai_recommendation_software_tpu_torch.models import train as ttrain
+from lidar_ai_recommendation_software_tpu_torch.models import crowdnet
 from lidar_ai_recommendation_software_tpu_torch.models.crowdnet import (
     CrowdNet)
 
@@ -197,3 +198,34 @@ def test_train_config_copy_equals_jax():
         1024, 256, 64)
     assert ttrain.make_model(ttrain.TrainConfig(bf16=True)).sa1.dtype == \
         torch.bfloat16
+
+
+@pytest.mark.parametrize("rows", [1, 2, 5])
+def test_row_prefix_sums_equal_cumsum(rows):
+    """``_row_prefix_sums`` scans a lone row beside a row of zeros (the
+    card's lone-row scan varies run to run); on the CPU every row equals
+    ``torch.cumsum``'s bit for bit."""
+    x = torch.rand(rows, 1000, dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(rows))
+    got = crowdnet._row_prefix_sums(x)
+    assert got.shape == x.shape
+    assert torch.equal(got, torch.cumsum(x, 1))
+
+
+@pytest.mark.parametrize("channels", [1, 4])
+def test_segment_sums_match_numpy(channels):
+    """Per-cell sums (a lone channel is the pillar z sums' case) against
+    numpy's float64 ``add.at``, rounded to float32; masked rows go to the
+    spill cell g * g, which is dropped."""
+    g, b, n = 8, 3, 700
+    rng = np.random.RandomState(channels)
+    values = rng.uniform(-2, 2, (b, n, channels)).astype(np.float32)
+    flat = rng.randint(0, g * g + 1, (b, n))
+    want = np.zeros((b, g * g + 1, channels))
+    for i in range(b):
+        np.add.at(want[i], flat[i], values[i].astype(np.float64))
+    got = crowdnet._segment_sums(torch.from_numpy(values),
+                                 torch.from_numpy(flat), g)
+    np.testing.assert_allclose(got.numpy(),
+                               want[:, :-1].astype(np.float32), rtol=1e-6,
+                               atol=1e-6)

@@ -1,13 +1,18 @@
 """The PyTorch port on an NVIDIA GPU: the column-table kernels,
 ``place_dense``, ``fps`` and ``sa_mlp_pool`` against their plain versions,
-and the analytic and the neural pipeline through the CUDA kernels against
-the port's own CPU run. Skipped without a card. (``radius_count``'s edge
+the analytic and the neural pipeline through the CUDA kernels against the
+port's own CPU run, CrowdNet's convolution backward and training step, and
+the hash grid. Skipped without a card. (``radius_count``'s edge
 cases on the card: ``tests/test_torch_radius_count.py`` and
 ``chip_smoke.py``.)
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+Training (``test_training_is_deterministic_and_matches_cpu``) is
+bit-identical run to run on the card and within 1e-5 of the CPU's first
+gradients; the hash grid is bit-equal to the CPU's.
 
 Tolerances: integers and density grids exact; flow vectors, speeds and
 centroids within 1e-5 (sums and sin/cos round differently on the card).
@@ -365,3 +370,135 @@ def test_neural_card_matches_cpu(cuda_device):
                                cpu["flow"]["flow_vectors"]["vectors"],
                                atol=1e-4)
     assert card["flow"]["bottlenecks"] == cpu["flow"]["bottlenecks"]
+
+
+def test_conv_backward_in_full_float32(cuda_device):
+    """CrowdNet's trunk convolution (4 x 201 x 64 x 64 -> 128, 3 x 3) on
+    the card, forward and backward, under the global defaults (TF32 on):
+    its weight and input gradients equal a float64 CPU reference within
+    float32 rounding, 1e-4 of the sum of the absolute products; TF32 rounds
+    each product to 10 bits (5e-4)."""
+    from lidar_ai_recommendation_software_tpu_torch.models import crowdnet
+    assert torch.backends.cudnn.allow_tf32  # the default the fix must beat
+    rng = np.random.RandomState(5)
+    conv = torch.nn.Conv2d(201, 128, 3, padding=1)
+    x = torch.from_numpy(rng.randn(4, 201, 64, 64).astype(np.float32))
+    g = torch.from_numpy(rng.randn(4, 128, 64, 64).astype(np.float32))
+    card = conv.to(cuda_device)
+    xc = x.to(cuda_device).requires_grad_()
+    crowdnet._conv(xc, card).backward(g.to(cuda_device))
+    x64 = x.double().requires_grad_()
+    w64 = conv.weight.detach().cpu().double().requires_grad_()
+    torch.nn.functional.conv2d(x64, w64, padding=1).backward(g.double())
+    # the same sums over absolute values: the scale of float32 rounding
+    xa = x.double().abs().requires_grad_()
+    wa = w64.detach().abs().requires_grad_()
+    torch.nn.functional.conv2d(xa, wa, padding=1).backward(g.double().abs())
+    for name, got, want, scale in (
+            ("weight", card.weight.grad, w64.grad, wa.grad),
+            ("input", xc.grad, x64.grad, xa.grad)):
+        err = float(((got.cpu().double() - want).abs() / scale).max())
+        assert err <= 1e-4, (name, err)
+
+
+def test_row_prefix_sums_reproducible_on_card(cuda_device):
+    """The BEV cell sums' float64 prefix of a lone 32,768-long row (the
+    pillar z sums of a batch of 4 x 8,192 points): 1,000 reruns on the
+    card bit-identical (PyTorch's scan of a lone row is not: its
+    device-wide scan adds the tiles' sums in an order that varies), and
+    within float64 rounding of the CPU's sequential scan."""
+    from lidar_ai_recommendation_software_tpu_torch.models import crowdnet
+    row = torch.rand(1, 32768, dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(1))
+    card = row.to(cuda_device)
+    first = crowdnet._row_prefix_sums(card)
+    differ = sum(int(not torch.equal(crowdnet._row_prefix_sums(card),
+                                     first)) for _ in range(1000))
+    assert differ == 0
+    np.testing.assert_allclose(first.cpu().numpy(),
+                               torch.cumsum(row, 1).numpy(), rtol=1e-12)
+
+
+def test_training_is_deterministic_and_matches_cpu(cuda_device):
+    """Two steps on the card twice: bit-identical losses and parameters
+    (no float atomics in the backward: the gathers' index_put, the cell
+    sums' prefix, cuDNN's deterministic algorithms; no lone-row scan in
+    the forward: the pillar sums' prefix); the first step's
+    gradients within 1e-5 of the CPU's, tensor by tensor."""
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+    cfg = train.TrainConfig(batch_size=2, n_points=2048, grid=16,
+                            sa1_samples=512, sa2_samples=128)
+
+    def run(device):
+        state = train.init_state(cfg, device=device)
+        rng = np.random.RandomState(cfg.seed)
+        losses, grads = [], None
+        for i in range(2):
+            kernels.reset_launch_counts()
+            m = train.train_step(state, train.batch_tensors(
+                train.make_batch(rng, cfg), device), cfg)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                grads = {n: p.grad.cpu() for n, p in
+                         state.model.named_parameters()}
+            if device != "cpu":
+                assert kernels.LAUNCHES["fps_batched"] == 2
+                assert kernels.LAUNCHES["sa_mlp_pool"] == 2
+        return state, losses, grads
+
+    a, la, ga = run("cuda")
+    b, lb, _ = run("cuda")
+    assert la == lb
+    assert all(torch.equal(p, q) for p, q in zip(a.model.parameters(),
+                                                 b.model.parameters()))
+    _, lc, gc = run("cpu")
+    assert la[0] == pytest.approx(lc[0], rel=1e-5)
+    for name, g in gc.items():
+        assert float((ga[name] - g).norm() / g.norm()) <= 1e-5, name
+
+
+def _hashgrid_clouds():
+    rng = np.random.RandomState(12)
+    pile = rng.uniform(-8, 8, (6000, 3)).astype(np.float32)
+    pile[:, 2] *= 0.1
+    pile[:300] = rng.uniform(0.0, 0.05, (300, 3))
+    venue = scaled_venue(300_000)[:, :3].astype(np.float32)
+    return {"blobs": _blobs(3, 20000, 20.0, 0.15, 0.9),
+            "bucket_overflow": (pile, rng.rand(6000) > 0.02),
+            "above_the_dense_limit": (venue, np.ones(len(venue), bool))}
+
+
+@pytest.mark.parametrize("name", ["blobs", "bucket_overflow",
+                                  "above_the_dense_limit"])
+def test_hashgrid_card_matches_cpu(cuda_device, name):
+    """The hash grid and ``ball_group``'s hash-grid route ("auto" above
+    262,144 sources) on the card, bit-equal to the CPU."""
+    from lidar_ai_recommendation_software_tpu_torch.ops import (
+        grouping, hashgrid)
+    pts, mask = _hashgrid_clouds()[name]
+    p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+    q, qm = p[::max(1, len(pts) // 4096)][:4096], m[::max(
+        1, len(pts) // 4096)][:4096]
+    for radius, cap in ((0.4, 32), (0.6, 64)):
+        cpu = hashgrid.build_grid(p, m, radius)
+        card = hashgrid.build_grid(p.to(cuda_device), m.to(cuda_device),
+                                   radius)
+        for field in ("origin", "dims", "order", "sorted_ids",
+                      "sorted_points"):
+            assert torch.equal(getattr(card, field).cpu(),
+                               getattr(cpu, field)), field
+        want = hashgrid.ball_count(cpu, q, qm, radius, bucket_capacity=cap)
+        got = hashgrid.ball_count(card, q.to(cuda_device),
+                                  qm.to(cuda_device), radius,
+                                  bucket_capacity=cap)
+        assert torch.equal(got.cpu(), want)
+        method = "auto" if len(pts) > grouping.BRUTEFORCE_MAX_SOURCE \
+            else "hashgrid"
+        want = grouping.ball_group(q, qm, p, m, radius, 32, method=method,
+                                   bucket_capacity=cap)
+        got = grouping.ball_group(q.to(cuda_device), qm.to(cuda_device),
+                                  p.to(cuda_device), m.to(cuda_device),
+                                  radius, 32, method=method,
+                                  bucket_capacity=cap)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])

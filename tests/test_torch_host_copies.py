@@ -28,8 +28,8 @@ PORT = "lidar_ai_recommendation_software_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "lidar_ai_recommendation_software_tpu")
 NEURAL_MODULES = ("neural.py", "models/crowdnet.py", "models/train.py",
-                  "ops/sampling.py", "ops/grouping.py", "ops/cuda/place.py",
-                  "ops/cuda/pointnet.py")
+                  "ops/sampling.py", "ops/grouping.py", "ops/hashgrid.py",
+                  "ops/cuda/place.py", "ops/cuda/pointnet.py")
 
 
 @pytest.mark.parametrize("name", ["MONOLITH_CONFIG", "MODULAR_CONFIG"])

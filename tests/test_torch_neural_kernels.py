@@ -234,12 +234,30 @@ def test_ball_group_masks_empty_and_features():
 @pytest.mark.parametrize("kw", [dict(method="hashgrid"), dict(method="auto")],
                          ids=["asked_for", "auto_above_the_dense_limit"])
 def test_ball_group_hashgrid_is_not_ported(kw):
-    n = 8 if kw["method"] == "hashgrid" else tgr.BRUTEFORCE_MAX_SOURCE + 1
+    """The hash-grid route, asked for and taken by "auto" above
+    ``BRUTEFORCE_MAX_SOURCE`` sources: the JAX package's indices and
+    validity bit for bit (``tests/test_torch_hashgrid.py`` holds the grid
+    itself). The name stays from when the port raised
+    ``NotImplementedError`` for this route."""
+    n = 3000 if kw["method"] == "hashgrid" else tgr.BRUTEFORCE_MAX_SOURCE + 1
     assert tgr.BRUTEFORCE_MAX_SOURCE == jgr.BRUTEFORCE_MAX_SOURCE
-    pts = torch.zeros((n, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgr.ball_group(pts[:2], torch.ones(2, dtype=torch.bool), pts,
-                       torch.ones(n, dtype=torch.bool), 0.5, 2, **kw)
+    rng = np.random.RandomState(8)
+    extent = (n / 3000) ** 0.5 * 5
+    pts = rng.uniform(-extent, extent, (n, 3)).astype(np.float32)
+    pts[:, 2] *= 0.1
+    pm = rng.rand(n) > 0.05
+    q, qm = pts[:96], np.arange(96) % 13 != 5
+    jidx, jval = jgr.ball_group(jnp.asarray(q), jnp.asarray(qm),
+                                jnp.asarray(pts), jnp.asarray(pm), 0.6, 16,
+                                **kw)
+    idx, val = tgr.ball_group(_t(q), _t(qm), _t(pts), _t(pm), 0.6, 16, **kw)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(val.numpy(), np.asarray(jval))
+    assert val.sum() > 96 and not val[5].any()
+    if kw["method"] == "auto":
+        hidx, hval = tgr.ball_group(_t(q), _t(qm), _t(pts), _t(pm), 0.6, 16,
+                                    method="hashgrid")
+        assert torch.equal(idx, hidx) and torch.equal(val, hval)
 
 
 def test_random_downsample_keeps_what_jax_keeps_for_the_same_uniforms():

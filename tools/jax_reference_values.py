@@ -6,6 +6,7 @@ taken once on a CPU and written into the script.
     JAX_PLATFORMS=cpu python3 -m tools.jax_reference_values neural
     JAX_PLATFORMS=cpu python3 -m tools.jax_reference_values scan 3000000
     JAX_PLATFORMS=cpu python3 -m tools.jax_reference_values sequence
+    JAX_PLATFORMS=cpu python3 -m tools.jax_reference_values train [--fused]
 
 ``neural`` serves the shipped checkpoint through the JAX package's
 ``NeuralPipeline(use_pallas=False)``, a fresh pipeline for each cloud (the
@@ -15,7 +16,16 @@ runs the JAX package's ``Pipeline().analyze(scaled_venue(N))``; at
 ``Pipeline().analyze_sequence`` on ``BASELINE.md`` config 3 as
 ``benchmarks/temporal.py`` builds it (4 frames of 100,000 points, 500
 people, dt 0.5 s), and each frame's person-like people under the capacity
-config that ``analyze_sequence`` fits to the largest frame.
+config that ``analyze_sequence`` fits to the largest frame. ``train``
+takes 3 steps of the JAX package's ``train_step`` at the default
+``TrainConfig`` (4 x 8,192 points) from the port's seeded weights
+(``init_state`` of the port, carried across by ``flax_from_params``; their
+``weights_digest`` is printed) with
+``optax.adamw`` on ``make_batch(RandomState(0))``'s batches, and prints
+each step's loss and the first step's gradient norms; ``--fused`` runs the
+JAX package's kernel path (``use_pallas=True``, its Pallas kernels in
+interpret mode), the path the port's CrowdNet mirrors, instead of its jnp
+path.
 """
 
 from __future__ import annotations
@@ -103,6 +113,41 @@ def sequence() -> None:
         "seconds": round(seconds, 1)}))
 
 
+def train(fused: bool) -> None:
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from lidar_ai_recommendation_software_tpu.models import train as jt
+    from lidar_ai_recommendation_software_tpu_torch.models import (
+        train as tt)
+    cfg = jt.TrainConfig(use_pallas=fused)
+    weights = tt.init_state(tt.TrainConfig(), device="cpu").model.state_dict()
+    params = jax.tree_util.tree_map(jnp.asarray,
+                                    tt.flax_from_params(weights))
+    state = jt.TrainState.create(
+        apply_fn=jt.make_model(cfg).apply, params=params,
+        tx=optax.adamw(cfg.learning_rate, weight_decay=cfg.weight_decay))
+    rng = np.random.RandomState(cfg.seed)
+    losses, norms = [], {}
+    t0 = time.time()
+    for step in range(3):
+        batch = {k: jnp.asarray(v) for k, v in jt.make_batch(rng, cfg).items()}
+        if step == 0:
+            _, grads = jax.jit(jax.value_and_grad(jt.loss_fn, has_aux=True),
+                               static_argnums=(1, 3))(
+                state.params, state.apply_fn, batch, cfg)
+            norms = {"/".join(str(getattr(k, "key", k)) for k in path):
+                     float(jnp.linalg.norm(g.ravel()))
+                     for path, g in
+                     jax.tree_util.tree_leaves_with_path(grads)}
+        state, metrics = jt.train_step(state, batch, cfg)
+        losses.append(float(metrics["loss"]))
+    print("train", json.dumps({"fused": fused, "losses": losses,
+                               "init_sha256": tt.weights_digest(weights),
+                               "grad_norms": norms,
+                               "seconds": round(time.time() - t0, 1)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["neural"]:
         neural()
@@ -110,5 +155,7 @@ if __name__ == "__main__":
         scan(int(sys.argv[2]))
     elif sys.argv[1:2] == ["sequence"]:
         sequence()
+    elif sys.argv[1:2] == ["train"] and sys.argv[2:] in ([], ["--fused"]):
+        train(sys.argv[2:] == ["--fused"])
     else:
         sys.exit(__doc__)

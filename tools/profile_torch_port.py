@@ -3,7 +3,9 @@
 ``Pipeline.analyze``, ``NeuralPipeline.analyze``, the default-width
 CrowdNet and the 100,000-point set-abstraction layer.
 
-    python3 -m tools.profile_torch_port     (from the repository root)
+    python3 -m tools.profile_torch_port [analyze] [neural] [train]
+
+(from the repository root; all three sections by default).
 
 It prints the card's name and power limit. Then, for the seed-42 fixture
 (10,000 points), a 40,960-point sensor frame and venues of 262,144,
@@ -19,10 +21,14 @@ It prints the card's name and power limit. Then, for the seed-42 fixture
 
 The same two readings follow for neural serving (the shipped checkpoint on
 a 4,096-point cloud), for the default-width CrowdNet on a batch of 4
-(weights from a numpy seed) and for the 100,000-point set-abstraction layer
+(weights drawn from generator seed 11) and for the 100,000-point set-abstraction layer
 (4,096 samples, K = 32, r = 0.6, MLP 3-32-32-64, bfloat16 operands), by
-stage: sampling (``fps``), grouping (``ball_group``, ``group_features``),
-the fused MLP (``sa_mlp_pool``), the BEV trunk and heads, and the host.
+stage: sampling (``fps``), grouping (``ball_group``, ``group_features``;
+at 100,000 points both routes, dense and hash grid), the fused MLP
+(``sa_mlp_pool``), the BEV trunk and heads, and the host; the same layer
+on a 1,000,000-point venue (the hash grid, ``fps`` streaming); and a
+default-width training step (``TrainConfig()``): forward, backward and the
+AdamW update.
 
 Needs a CUDA device; exits non-zero without one.
 """
@@ -120,8 +126,13 @@ def device_profile(fn, reps: int = 3):
         for _ in range(reps):
             fn()
         wall = _sync_ms(t0) / reps
+    # user annotations (Optimizer.step's) also appear on the device's
+    # timeline; they are not device work
+    notes = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and e.key not in notes]
     rows = sorted(((e.self_device_time_total / 1e3 / reps, e.count // reps,
                     e.key) for e in kernels), reverse=True)
     return wall, sum(r[0] for r in rows), rows
@@ -205,8 +216,7 @@ def neural_sections() -> None:
 
     print("== default-width CrowdNet, 4 x 8,192 points")
     cfg = train.TrainConfig()
-    model = train.make_model(cfg).eval()
-    model.load_state_dict(train.seeded_state_dict(model, 11))
+    model = train.make_model(cfg, torch.Generator().manual_seed(11)).eval()
     model.to("cuda")
     pts = np.stack([sample_venue(n_points=cfg.n_points, n_people=80,
                                  seed=100 + i)
@@ -233,14 +243,16 @@ def neural_sections() -> None:
                            ).to("cuda"), torch.zeros(b).to("cuda"))
          for a, b in zip(dims[:-1], dims[1:])]
 
-    def layer():
+    def layer(p, mask, methods=("auto",)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         idx = fps_single(p, mask, 4096).to(torch.int64)
         yield "fps_single", _sync_ms(t0)
-        t0 = time.perf_counter()
-        gidx, gvalid = ball_group(p[idx], mask[idx], p, mask, 0.6, 32)
-        yield "ball_group", _sync_ms(t0)
+        for method in methods:
+            t0 = time.perf_counter()
+            gidx, gvalid = ball_group(p[idx], mask[idx], p, mask, 0.6, 32,
+                                      method=method)
+            yield f"ball_group ({method})", _sync_ms(t0)
         t0 = time.perf_counter()
         g = group_features(p, None, p[idx], gidx, gvalid)
         yield "group_features", _sync_ms(t0)
@@ -248,8 +260,40 @@ def neural_sections() -> None:
         sa_mlp_pool(g, gvalid, w, compute_dtype=torch.bfloat16)
         yield "sa_mlp_pool", _sync_ms(t0)
 
-    print_stages(layer, reps=3)
-    print_profile("the layer", lambda: list(layer()))
+    print_stages(lambda: layer(p, mask, ("dense", "hashgrid")), reps=3)
+    print_profile("the layer", lambda: list(layer(p, mask)))
+
+    print("== 1,000,000-point set-abstraction layer (the hash grid), "
+          "bfloat16 operands")
+    big = torch.from_numpy(np.ascontiguousarray(
+        scaled_venue(1_000_000)[:, :3], dtype=np.float32)).to("cuda")
+    big_mask = torch.ones(big.shape[0], dtype=torch.bool).to("cuda")
+    print_stages(lambda: layer(big, big_mask), reps=3)
+
+
+def training_sections() -> None:
+    """A default-width training step (``TrainConfig()``: 4 x 8,192
+    points) by stage, and under the profiler."""
+    print("== CrowdNet training step, 4 x 8,192 points")
+    cfg = train.TrainConfig()
+    state = train.init_state(cfg, device="cuda")
+    batch = train.batch_tensors(train.make_batch(
+        np.random.RandomState(cfg.seed), cfg), "cuda")
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = train.step_loss(state, batch, cfg)
+        yield "forward (the loss)", _sync_ms(t0)
+        t0 = time.perf_counter()
+        loss.backward()
+        yield "backward", _sync_ms(t0)
+        t0 = time.perf_counter()
+        train.apply_update(state)
+        yield "optimizer (AdamW)", _sync_ms(t0)
+
+    print_stages(step)
+    print_profile("train_step", lambda: train.train_step(state, batch, cfg))
 
 
 def main() -> int:
@@ -261,17 +305,23 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(ident)
-    pipe = Pipeline(device="cuda")
-    for name, pts in (("10,000-point fixture", sample_venue()),
-                      ("40,960-point frame", scaled_venue(40_960)),
-                      ("262,144-point venue", scaled_venue(262_144)),
-                      ("1,000,000-point venue", scaled_venue(1_000_000)),
-                      ("3,000,000-point scan", scaled_venue(3_000_000))):
-        print(f"== {name}")
-        for stage, ms in stage_times(pipe, pts).items():
-            print(f"{stage:30s} {ms:10.3f} ms")
-        print_profile("analyze", lambda: pipe.analyze(pts))
-    neural_sections()
+    sections = sys.argv[1:] or ["analyze", "neural", "train"]
+    if "analyze" in sections:
+        pipe = Pipeline(device="cuda")
+        for name, pts in (("10,000-point fixture", sample_venue()),
+                          ("40,960-point frame", scaled_venue(40_960)),
+                          ("262,144-point venue", scaled_venue(262_144)),
+                          ("1,000,000-point venue", scaled_venue(1_000_000)),
+                          ("3,000,000-point scan",
+                           scaled_venue(3_000_000))):
+            print(f"== {name}")
+            for stage, ms in stage_times(pipe, pts).items():
+                print(f"{stage:30s} {ms:10.3f} ms")
+            print_profile("analyze", lambda: pipe.analyze(pts))
+    if "neural" in sections:
+        neural_sections()
+    if "train" in sections:
+        training_sections()
     return 0
 
 
