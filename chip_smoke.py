@@ -64,7 +64,17 @@ Run from the root of a checkout. It
   8. runs a 3,000,000-point scan, whose centroids take the ``place_dense``
      route (one launch): the JAX package's recorded values, the centroids
      of the other route on the same labels, a second run bit-identical;
-  9. prints the warm wall time of ``analyze`` at every size.
+  9. drives the port's CLI (``cli.main`` in this process, and ``info`` in
+     a subprocess) in a temporary directory: the 1M scan written by
+     ``sample`` and as LAS and binary PCD files, read back (the LAS
+     through the native parser), and ``analyze scan.las`` with JSON,
+     report and store (the JAX package's recorded values, the store equal
+     to the JSON, the kernels of the 1M ``Pipeline.analyze``, the CLI's
+     host stages); the fixture's golden values, also under
+     ``--fallback-cpu``, which must not degrade; ``--neural``;
+     ``analyze-seq`` on the sequence's frames; ``train`` at its defaults,
+     its checkpoint served; ``bench`` at 1M;
+ 10. prints the warm wall time of ``analyze`` at every size.
 
 Each pipeline run resets the launch counts just before it and reads them
 just after. The line before the last is a JSON record of the kernels; the
@@ -75,16 +85,24 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import io
 import json
 import math
+import os
+import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 RADIUS = 2.0
 PORT = "lidar_ai_recommendation_software_tpu_torch"
+REPO_ROOT = str(Path(__file__).resolve().parent)
 JAX_PKG = "lidar_ai_recommendation_software_tpu"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -564,6 +582,8 @@ def radius_needed_pairs(centers, people, pmask, radius) -> int:
 def run_radius_checks(dev) -> dict:
     import torch
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
+        radius_count_work)
 
     max_err = 0
     cases = radius_cases(dev)
@@ -601,17 +621,16 @@ def run_radius_checks(dev) -> dict:
         ncent, k, live = c.shape[0], p.shape[0], int(m.sum())
         pairs = radius_needed_pairs(c, p, m, RADIUS)
         # centres and people read once, counts written once; 6 operations
-        # (2 differences, 2 products, a sum, a compare) per pair test that
-        # this run's data needs
-        nbytes = ncent * 8 + k * 9 + ncent * 4
-        b_ms, b_by = bound(nbytes, pairs * 6)
+        # per pair test that this run's data needs
+        nbytes, ops = radius_count_work(ncent, k, pairs)
+        b_ms, b_by = bound(nbytes, ops)
         print(f"radius_count {name}: kernel {ms:.6f} ms, "
               f"{dev_ms:.6f} ms from a CUDA graph, plain {plain:.6f} ms, "
               f"bound {b_ms:.6f} ms ({b_by}), {pairs} pair tests needed; "
               f"plan {kernels.radius_plan(ncent, k)}")
         # the yardstick of earlier runs: every centre against every live
         # person, as the TPU kernel's loop counts them
-        all_ms, all_by = bound(nbytes, ncent * live * 6)
+        all_ms, all_by = bound(*radius_count_work(ncent, k, ncent * live))
         print(f"radius_count {name}: all-pairs bound {all_ms:.6f} ms "
               f"({all_by}), {ncent * live} pair tests")
         if i == 1:  # the 40,960-point frame's shape
@@ -760,6 +779,8 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     from lidar_ai_recommendation_software_tpu_torch.ops import ccl
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
         columns as C)
+    from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
+        column_kernel_work)
 
     p = torch.from_numpy(pts).to(dev)
     m = torch.from_numpy(mask).to(dev)
@@ -890,31 +911,10 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     scan, core_scan = slots_read(occ), slots_read(core_occ)
     n_changed = int((lab != labels0).sum())
     n, s = pts.shape[0], tab.shape[0]
-    work = {  # (bytes: each input read once and each output written once,
-        #          as far as this run's data needs them; operations: 9 per
-        #          pair test)
-        # table written whole; order, scid read, the placed points' xyz,
-        # cell_start; stream_slot and point_stream written
-        "table_fill": (16 * s + 8 * n + 12 * n_occ + 4 * (ncells + 1)
-                       + 8 * n, 0),
-        # point_stream read, the placed points' values, out written
-        "table_gather": (4 * n + 4 * n_occ + 4 * n, 0),
-        # the same, and n_clusters (the ranks need no bytes of their own
-        # from DRAM: a design can keep them on chip)
-        "dense_tail": (4 * n + 4 * n_occ + 4 * n + 4, 0),
-        # the occupied slots (each column's occupancy from cell_start, so
-        # no end marker and no stream_slot), cell_start, out
-        "column_counts": (16 * n_occ + 4 * (ncells + 1) + 4 * n, 9 * pairs),
-        # and the placed points' labels
-        "border_min": (16 * n_occ + 4 * (ncells + 1) + 4 * n_occ + 4 * n,
-                       9 * pairs),
-        # the function, whatever the design: stream_slot, the placed
-        # points' labels and the slots the core points scan read once, each
-        # label that changes written once; a pair test per core point and
-        # slot it scans (no factor of sweeps: one pass reaches the fixpoint)
-        "propagate": (4 * n + 4 * n_occ + 16 * core_scan + 4 * n_changed,
-                      9 * core_pairs),
-    }
+    # (bytes, operations): each input read once and each output written
+    # once, as far as this run's data needs them; 9 operations a pair test
+    work = column_kernel_work(n, s, n_occ, ncells, pairs, core_pairs,
+                              core_scan, n_changed)
     # the scans' bound for a walk of the table (each column read to its end
     # marker, stream_slot read), as the scan's first design worked: the
     # yardstick that design and this one were compared on
@@ -2489,6 +2489,292 @@ def run_scan_3m(pipe, ident: str) -> tuple:
     return scan, launches, record
 
 
+# ---------------------------------------------------------------------------
+# the CLI
+# ---------------------------------------------------------------------------
+
+CLI_STAGES = ("cli load", "cli analyze", "cli json", "cli report",
+              "cli store")
+CLI_RUNS = 3  # runs of the 1M scan's command, for the stages' medians
+
+
+class _Recorded:
+    """The calls of ``cls.method`` while the block runs, as (instance,
+    result) pairs: how the script reads what a CLI run computed beyond
+    what the CLI prints."""
+
+    def __init__(self, cls, method: str):
+        self.cls, self.method, self.calls = cls, method, []
+
+    def __enter__(self):
+        original = self.original = getattr(self.cls, self.method)
+
+        def wrapper(obj, *args, **kwargs):
+            out = original(obj, *args, **kwargs)
+            self.calls.append((obj, out))
+            return out
+
+        setattr(self.cls, self.method, wrapper)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.original)
+        return False
+
+
+def cli_run(argv, what: str, totals: dict) -> tuple:
+    """``cli.main(argv)`` in this process, traced (its launches added to
+    ``totals``): (stdout, the launch counts). It must exit 0 and print no
+    warning of a degraded run."""
+    from lidar_ai_recommendation_software_tpu_torch import cli
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc, launches = traced(lambda: cli.main(argv), what)
+    text = out.getvalue()
+    print(f"$ lidar-crowd-torch {' '.join(argv)}")
+    print(text.rstrip())
+    require(rc == 0, f"{what}: exit code {rc}; stderr {err.getvalue()}")
+    require("WARNING" not in err.getvalue(),
+            f"{what}: degraded run: {err.getvalue()}")
+    for k, v in launches.items():
+        totals[k] += v
+    return text, launches
+
+
+def write_pcd_binary(path, points) -> None:
+    """A binary PCD file (x, y, z float32 records), as sensors write it."""
+    import numpy as np
+    n = len(points)
+    with open(path, "wb") as f:
+        f.write(("# .PCD v0.7\nVERSION 0.7\nFIELDS x y z\nSIZE 4 4 4\n"
+                 "TYPE F F F\nCOUNT 1 1 1\n"
+                 f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+                 f"POINTS {n}\nDATA binary\n").encode())
+        f.write(np.ascontiguousarray(points, dtype="<f4").tobytes())
+
+
+def run_cli_scan(big, out_1m, launches_1m, totals, ident: str) -> None:
+    """``BASELINE.md`` config 4 from files: the scan written by ``sample``
+    and as LAS and binary PCD, read back (the LAS through the native
+    parser), then ``analyze scan.las`` with JSON, report and store:
+    the JAX package's recorded values, the store equal to the JSON, the
+    1M phase's kernels, and the CLI's host stages."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    from lidar_ai_recommendation_software_tpu_torch.utils import io as pio
+    from lidar_ai_recommendation_software_tpu_torch.utils import native
+    from lidar_ai_recommendation_software_tpu_torch.utils import profiling
+    from lidar_ai_recommendation_software_tpu_torch.utils.store import (
+        ResultsStore)
+
+    cli_run(["sample", "--points", "1000000", "--out", "scan.npy"],
+            "sample", totals)
+    scan = pio.load_points("scan.npy")
+    require(np.array_equal(scan, big), "sample wrote another 1M venue")
+    pio.save_points("scan.las", scan)
+    write_pcd_binary("scan.pcd", scan)
+    require(native.available(), "the native loader did not build")
+    las = pio.load_points("scan.las")
+    raw = Path("scan.las").read_bytes()
+    scale = np.array(struct.unpack_from("<3d", raw, 131))
+    offset = struct.unpack_from("<3d", raw, 155)
+    via_native = native.parse_las_points(raw, 227, 20, len(scan), scale,
+                                         offset)
+    require(via_native is not None and np.array_equal(las, via_native),
+            "the LAS scan was not parsed by the native library")
+    err = np.abs(las - scan).max(0)
+    require(bool((err <= scale).all()), f"LAS off by {err} (scale {scale})")
+    pcd = pio.load_points("scan.pcd")
+    require(np.array_equal(pcd, scan.astype(np.float32).astype(np.float64)),
+            "the binary PCD scan differs")
+    print(f"scan.npy, scan.las ({len(raw):,} bytes, native parser, within "
+          f"{err.max():.3e} of the npy, scale {scale.max():.3e}) and "
+          f"scan.pcd (binary, float32-exact) read back")
+    info = subprocess.run(
+        [sys.executable, "-m", f"{PORT}.cli", "info", "scan.las"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO_ROOT})
+    print(info.stdout.rstrip())
+    require(info.returncode == 0 and "1,000,000 points" in info.stdout,
+            f"cli info in a subprocess: {info.returncode} {info.stderr}")
+
+    argv = ["analyze", "scan.las", "--json", "out.json", "--report",
+            "out.html", "--no-figures", "--store", "results.sqlite"]
+    stages = {name: [] for name in CLI_STAGES}
+
+    def timed_run(what):
+        profiling.reset_timings()
+        ran = cli_run(argv, what, totals)
+        for name, t in profiling.timings().items():
+            stages[name].append(t["last_ms"])
+        return ran
+
+    with _Recorded(Pipeline, "analyze") as calls:
+        _, launches = timed_run("CLI 1M scan")
+    out = calls[0][1]
+    got = json.load(open("out.json"))
+    check_jax_reference({"density": got["density"], "flow": got["flow"],
+                         "processed": out["processed"]},
+                        JAX_REFERENCE_1M, "CLI, 1M scan from LAS (JSON)")
+    speed_err = abs(got["flow"]["avg_speed"] - out_1m["flow"]["avg_speed"])
+    require(speed_err <= FLOAT_TOL, f"CLI 1M avg_speed off by {speed_err}")
+    store = ResultsStore("results.sqlite")
+    rows = {"density": store.get_density_results(1),
+            "flow": store.get_flow_results(1),
+            "recommendations": store.get_recommendations(1)}
+    require(rows == got, "the stored results differ from the JSON")
+    require(len(store.list_reports()) == 1, "the report was not stored")
+    store.close()
+    print("store (read back by ResultsStore) equals the JSON: yes")
+    used = {k: v for k, v in launches.items() if v}
+    want = {k: v for k, v in launches_1m.items() if v}
+    require(used == want, f"the CLI's 1M run launched {used}, "
+            f"Pipeline.analyze {want}")
+    require(all(launches[k] > 0 for k in COLUMN_PATH),
+            "the CLI's 1M run missed a column kernel")
+    print(f"kernels of the CLI's 1M run equal those of Pipeline.analyze: "
+          f"{used}")
+    for _ in range(CLI_RUNS - 1):
+        timed_run("CLI 1M scan, again")
+    for name, ms in stages.items():
+        require(len(ms) == CLI_RUNS, f"stage {name}: {len(ms)} timings")
+        print(f"CLI host stage {name}: median {statistics.median(ms):.3f} "
+              f"ms of {CLI_RUNS} ({', '.join(f'{v:.3f}' for v in ms)}) on "
+              f"{ident}")
+
+
+def check_fallback_raises_kernel_faults() -> None:
+    """``analyze --fallback-cpu`` on the card, its pipeline failing as a
+    kernel that does not launch would: the card answers the health probe,
+    so the failure is raised and nothing is computed on the CPU."""
+    from unittest import mock
+
+    from lidar_ai_recommendation_software_tpu_torch import cli
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+
+    fault = RuntimeError("simulated kernel launch failure")
+    on_card = Pipeline.analyze_device
+
+    def fails_on_card(self, cloud, cfg):
+        if self.device.type == "cuda":
+            raise fault
+        return on_card(self, cloud, cfg)
+
+    with mock.patch.object(Pipeline, "analyze_device", fails_on_card):
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["analyze", "sample", "--fallback-cpu"])
+        except RuntimeError as e:
+            require(e is fault, f"--fallback-cpu raised {e!r}")
+        else:
+            require(False, f"--fallback-cpu answered a kernel fault on a "
+                    f"healthy card from the CPU (exit {rc})")
+    print("--fallback-cpu on the card: a kernel fault is raised, not "
+          "degraded")
+
+
+def run_cli(big, out_1m, launches_1m, ident: str) -> dict:
+    """The port's CLI on the card, in a temporary directory: the 1M scan
+    from files, the fixture (also under ``--fallback-cpu``, which must not
+    degrade), ``--neural``, ``analyze-seq`` on the sequence's frames,
+    ``train`` at its defaults and ``bench`` at 1M. Returns the launches of
+    all its runs."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch import NeuralPipeline
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    from lidar_ai_recommendation_software_tpu_torch.utils import resilience
+
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            run_cli_scan(big, out_1m, launches_1m, totals, ident)
+
+            with _Recorded(Pipeline, "analyze") as calls:
+                _, launches = cli_run(["analyze", "sample"], "CLI fixture",
+                                      totals)
+            check_golden(calls[0][1])
+            require(launches["radius_count"] == 1, f"the fixture launched "
+                    f"radius_count {launches['radius_count']} times")
+            with _Recorded(resilience.FallbackPipeline, "analyze") as calls:
+                _, launches = cli_run(["analyze", "sample",
+                                       "--fallback-cpu"],
+                                      "CLI fixture, --fallback-cpu", totals)
+            fallback, fout = calls[0]
+            require("degraded" not in fout and fallback.fallbacks == 0
+                    and launches["radius_count"] == 1,
+                    "--fallback-cpu degraded on a healthy card")
+            check_golden(fout)
+            print("--fallback-cpu on the card: not degraded, 0 fallbacks")
+            check_fallback_raises_kernel_faults()
+
+            with _Recorded(NeuralPipeline, "analyze") as calls:
+                _, launches = cli_run(["analyze", "sample", "--neural"],
+                                      "CLI neural fixture", totals)
+            check_neural_reference(calls[0][1], JAX_NEURAL_FIXTURE,
+                                   "CLI, neural fixture")
+            require(launches["fps_batched"] == 2
+                    and launches["sa_mlp_pool"] == 2,
+                    f"the CLI's forward launched {launches}")
+
+            _, frames = sequence_frames()
+            for t, f in enumerate(frames):
+                np.save(f"f{t}.npy", f)
+            with _Recorded(Pipeline, "analyze_sequence") as calls:
+                _, launches = cli_run(
+                    ["analyze-seq", *(f"f{t}.npy" for t in range(len(frames))),
+                     "--dt", str(SEQUENCE_DT)], "CLI sequence", totals)
+            seq = calls[0][1]
+            got = {"people": seq["density"]["total_people"],
+                   "direction": seq["flow"]["dominant_direction"],
+                   "avg_speed": seq["flow"]["avg_speed"]}
+            ref = JAX_REFERENCE_SEQUENCE
+            print(f"CLI sequence: {got}")
+            require(got["people"] == ref["people"]
+                    and got["direction"] == ref["direction"]
+                    and abs(got["avg_speed"] - ref["avg_speed"]) <= 1e-4,
+                    f"CLI sequence {got} vs {ref}")
+            require(launches["table_fill"] == SEQUENCE_FRAMES
+                    and launches["radius_count"] == 1,
+                    f"the CLI's sequence launched {launches}")
+
+            text, launches = cli_run(
+                ["train", "--steps", "3", "--eval-venues", "2", "--out",
+                 "ckpt.npz"], "CLI train", totals)
+            nums = [float(v) for v in re.findall(
+                r"(?:final loss|density MAE|flow MSE) (\S+?)[,;]?\s",
+                text + " ")]
+            require(len(nums) == 3 and all(math.isfinite(v) for v in nums),
+                    f"training: losses and metrics {nums}")
+            require(launches["fps_batched"] > 0
+                    and launches["sa_mlp_pool"] > 0,
+                    f"training launched {launches}")
+            served = NeuralPipeline(checkpoint="ckpt.npz", device="cuda")
+            cfg = served.train_config
+            require((cfg.n_points, cfg.grid, cfg.sa1_samples,
+                     cfg.sa2_samples) == (4096, 32, 512, 128),
+                    f"the trained checkpoint's config {cfg}")
+            sout = served.analyze(big[:50_000])
+            require(np.isfinite(sout["density"]["density_map"]).all()
+                    and sout["density"]["density_map"].shape == (32, 32),
+                    "the trained checkpoint serves finite maps")
+            print(f"trained checkpoint served by NeuralPipeline: people "
+                  f"{sout['density']['total_people']}")
+
+            text, _ = cli_run(["bench", "--points", "1000000"], "CLI bench",
+                              totals)
+            require(re.search(r"steady-state : \S+ ms/cloud -> [\d,]+ "
+                              r"points/s", text) is not None,
+                    "bench printed no steady-state rate")
+        finally:
+            os.chdir(cwd)
+    print(f"launches over the CLI's runs: "
+          f"{ {k: v for k, v in totals.items() if v} }")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -2580,6 +2866,7 @@ def main() -> int:
         require(launches_1m[k] > 0, f"the 1M-point run did not launch {k}")
     require_one_pass(launches_1m, "the 1M-point run")
     check_jax_reference(out, JAX_REFERENCE_1M, "card, 1,000,000 points")
+    out_1m = out
     again = pipe.analyze(big)
     check_same(host_arrays(out), host_arrays(again), True,
                "second 1M-point run")
@@ -2634,6 +2921,11 @@ def main() -> int:
     venues[3_000_000], launches_3m, placed = run_scan_3m(pipe, ident)
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
+    phase("the CLI on the card")
+    t0 = time.perf_counter()
+    launches_cli = run_cli(big, out_1m, launches_1m, ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
     phase("warm wall time of analyze on the card")
     for name, pts in (("10,000-point fixture", fixture),
                       *((f"{n:,}-point venue", v)
@@ -2651,12 +2943,13 @@ def main() -> int:
                     max_abs_err=radius["max_abs_err"], ms=radius["ms"],
                     graph_ms=radius["graph_ms"], plain_ms=radius["plain_ms"],
                     bound_ms=radius["bound_ms"],
-                    bound_by=radius["bound_by"], library_ms=None)]
+                    bound_by=radius["bound_by"], library_ms=None,
+                    cli_launches=launches_cli["radius_count"])]
     for k in COLUMN_KERNELS:
         records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
                             replaces=KERNELS[k][1], launches=launches_1m[k],
                             max_abs_err=cols["errs"][k], **cols["times"][k],
-                            library_ms=None))
+                            library_ms=None, cli_launches=launches_cli[k]))
     # launches: place_dense in the 3M scan's analyze, fps_single in the
     # 100,000-point layer, fps_batched and sa_mlp_pool in one served analyze
     # (their times and bounds: the mean over that analyze's two launch
@@ -2675,7 +2968,7 @@ def main() -> int:
             if counts[k]}
         records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
                             replaces=KERNELS[k][1], launches=launches[k],
-                            **rec, **extra))
+                            **rec, **extra, cli_launches=launches_cli[k]))
     require([r["name"] for r in records] == list(KERNELS), "kernel records")
     require(all(r["graph_ms"] > 0 for r in records),
             "every kernel timed from a CUDA graph")

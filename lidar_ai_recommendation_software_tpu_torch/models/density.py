@@ -202,4 +202,5 @@ def analyze_density(processed: ProcessedCloud, people: People,
         density_grid=torch.where(empty, 0.0, grid),
         origin=origin, nx=nx, ny=ny,
         hotspot_xy=hxy, hotspot_density=torch.where(hmask, hdens, 0.0),
-        hotspot_mask=hmask, radius_overflow=radius_overflow)
+        hotspot_mask=hmask, radius_overflow=radius_overflow,
+        grid_size=float(dc.grid_size))

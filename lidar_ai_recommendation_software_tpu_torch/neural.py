@@ -211,6 +211,7 @@ class NeuralPipeline:
             "density_grid": density.T,
             "origin": (float(vmin[0] + offset[0]),
                        float(vmin[1] + offset[1])),
+            "grid_size": cell,
             "hotspots": hotspots,
         }
 

@@ -7,7 +7,8 @@ dataclasses of ``torch.Tensor``s on one device.
 
 ``to_host_dict`` turns device results into the reference-shaped dicts the
 recommendation engine and the front-ends read; it gives the same dicts as
-the JAX package's counterparts.
+the JAX package's counterparts, and the density dict also names its cell
+edge (``grid_size``), which the congestion figure reads.
 """
 
 from __future__ import annotations
@@ -138,6 +139,7 @@ class DensityResults:
     hotspot_mask: torch.Tensor     # (H,)   valid hotspots
     radius_overflow: torch.Tensor  # ()     int32 people a bucketed radius
     #                                       count dropped (0 = grid exact)
+    grid_size: float = 1.0         # cell edge in metres
 
     def to_host_dict(self) -> Dict[str, Any]:
         nx = int(self.nx)
@@ -159,6 +161,7 @@ class DensityResults:
             "density_map": grid,
             "density_grid": grid.T,  # the monolith stores [j, i]
             "origin": (float(origin[0]), float(origin[1])),
+            "grid_size": self.grid_size,
             "hotspots": hotspots,
         }
 

@@ -1,0 +1,128 @@
+"""Failure detection and graceful degradation.
+
+The reference's only failure handling is logged-error-and-return-None
+around DB calls (SURVEY.md §5). A deployment on a card needs more: cards
+fall off the bus and drivers wedge. This module provides:
+
+  - ``device_healthy``: a bounded-time liveness probe (a 128 x 128
+    matmul on the device with a host read-back, executed in a watchdog
+    thread so a wedged device cannot hang the caller);
+  - ``FallbackPipeline``: runs the card's pipeline, and when it fails on a
+    card that no longer answers the probe, degrades to the port's own
+    ``Pipeline(config, device="cpu")``, whose results equal the card's
+    (``chip_smoke.py``) and the JAX package's (the tests), so callers keep
+    working through an outage at CPU speed. It degrades only when a caller
+    asks for it (``--fallback-cpu``); any other failure is raised.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+
+logger = logging.getLogger("lidar_tpu.resilience")
+
+
+def matmul_probe(device: torch.device | str = "cuda") -> float:
+    """A 128 x 128 matmul on ``device``, read back to the host."""
+    x = torch.ones((128, 128), device=device)
+    return float((x @ x).sum())
+
+
+def device_healthy(timeout_s: float = 10.0, attempts: int = 3,
+                   retry_delay_s: float = 5.0, probe=None,
+                   device: torch.device | str = "cuda") -> bool:
+    """True when ``device`` executes + returns within budget.
+
+    A device error can be transient (the next probe succeeds), so a
+    single failed probe must not condemn the device: retry up to
+    ``attempts`` times with a flat delay. A probe that *hangs* (timeout)
+    still counts as one failed attempt — the per-attempt budget is
+    ``timeout_s``. ``probe`` replaces ``matmul_probe(device)``.
+    """
+    if probe is None:
+        def probe():
+            return matmul_probe(device)
+
+    for i in range(attempts):
+        # A plain daemon thread, NOT ThreadPoolExecutor: pool workers are
+        # non-daemon, so a probe wedged inside a device call would block
+        # interpreter exit — the caller would print its degraded record
+        # and then hang until killed from outside. A daemon thread lets
+        # the process exit cleanly.
+        box: Dict[str, object] = {}
+
+        def run():
+            try:
+                # coerce + finiteness-check INSIDE the guarded worker: a
+                # custom probe returning a non-numeric value must read as
+                # an unhealthy probe, not a TypeError out of the caller
+                box["val"] = float(probe())
+                box["ok"] = bool(np.isfinite(box["val"]))
+            except Exception as e:  # runtime error, no device
+                box["err"] = e
+
+        t = threading.Thread(target=run, daemon=True)
+        t.start()
+        t.join(timeout=timeout_s)
+        if box.get("ok"):
+            return True
+        if t.is_alive():
+            logger.warning("device health probe timed out "
+                           "(attempt %d/%d, %.0fs)", i + 1, attempts,
+                           timeout_s)
+        else:
+            # %r, not %s: exceptions raised with empty messages must
+            # still log their class
+            logger.warning("device health probe failed (attempt %d/%d):"
+                           " %r", i + 1, attempts,
+                           box.get("err", box.get("val")))
+        if i + 1 < attempts:
+            time.sleep(retry_delay_s)
+    return False
+
+
+# the probe's budget when a pipeline failure asks whether the card is gone
+HEALTH_TIMEOUT_S = 20.0
+
+
+class FallbackPipeline:
+    """Pipeline wrapper that degrades to the port's own pipeline on the
+    CPU when the card is lost; the results are the card's
+    (``chip_smoke.py`` holds them equal).
+
+    A failure on a card that still answers the probe is re-raised: a
+    kernel that does not build or launch, or a bad shape, is a fault of
+    the program, never a reason to compute on the CPU instead.
+    """
+
+    def __init__(self, pipeline=None):
+        self.pipeline = pipeline or Pipeline()
+        self.fallbacks = 0
+
+    def analyze(self, points: np.ndarray) -> Dict:
+        try:
+            return self.pipeline.analyze(points)
+        except Exception as e:
+            # attempts=1: the probe gates a *fast failover* to the CPU —
+            # retrying transients here would delay degraded-mode results
+            # by minutes
+            if device_healthy(HEALTH_TIMEOUT_S, attempts=1,
+                              device=self.pipeline.device):
+                raise
+            logger.error("device pipeline failed (%s) and the device is "
+                         "lost; falling back to the CPU", e)
+            return self._analyze_cpu(points)
+
+    def _analyze_cpu(self, points: np.ndarray) -> Dict:
+        self.fallbacks += 1
+        out = Pipeline(self.pipeline.config, device="cpu").analyze(points)
+        out["degraded"] = True
+        return out

@@ -86,6 +86,27 @@ def test_golden_values_on_card(venue):
     assert [b["severity"] for b in f["bottlenecks"]] == [8, 8, 8, 7, 7]
 
 
+def test_cli_analyze_sample_on_card(venue, tmp_path, capsys):
+    """``lidar-crowd-torch analyze sample --device cuda``: the golden
+    values in the JSON, ``radius_count`` launched once."""
+    import json
+
+    from lidar_ai_recommendation_software_tpu_torch import cli
+    kernels.reset_launch_counts()
+    out = tmp_path / "out.json"
+    assert cli.main(["analyze", "sample", "--device", "cuda", "--json",
+                     str(out)]) == 0
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["radius_count"] == 1
+    assert "people detected : 446" in capsys.readouterr().out
+    got = json.loads(out.read_text())
+    d, f = got["density"], got["flow"]
+    assert d["total_people"] == 446
+    assert d["max_density"] == 3.5
+    assert f["dominant_direction"] == "E"
+    assert [b["severity"] for b in f["bottlenecks"]] == [8, 8, 8, 7, 7]
+
+
 @pytest.fixture(scope="module")
 def cuda_device():
     if not torch.cuda.is_available():

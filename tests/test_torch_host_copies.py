@@ -1,6 +1,7 @@
 """The port's own copies of the JAX package's jax-free host modules
-(``config``, ``synthetic``, ``utils/recommendations``) against the
-originals, and the rule that the port imports nothing of the JAX package.
+(``config``, ``synthetic``, ``utils/recommendations``, ``native/loader.cpp``)
+against the originals, and the rule that the port imports nothing of the
+JAX package.
 
 Everything here is exact: configurations equal field for field, venues
 bit-equal, recommendation dicts equal.
@@ -30,6 +31,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
 NEURAL_MODULES = ("neural.py", "models/crowdnet.py", "models/train.py",
                   "ops/sampling.py", "ops/grouping.py", "ops/hashgrid.py",
                   "ops/cuda/place.py", "ops/cuda/pointnet.py")
+# the front-ends and host utilities, at the JAX package's paths
+HOST_MODULES = ("cli.py", "compat.py", "app.py", "desktop.py",
+                "utils/io.py", "utils/native.py", "utils/store.py",
+                "utils/viz.py", "utils/report.py", "utils/profiling.py",
+                "utils/resilience.py", "utils/project.py")
 
 
 @pytest.mark.parametrize("name", ["MONOLITH_CONFIG", "MODULAR_CONFIG"])
@@ -94,12 +100,21 @@ def test_recommendations_copy_equals_jax(request, source):
 def test_port_package_imports_nothing_of_jax():
     """Every module of the port, read with ``ast``: no import of the JAX
     package, jax, jaxlib, flax, optax or orbax, at any depth (function
-    bodies too); the modules of the neural path are among them."""
+    bodies too); the modules of the neural path and the front-ends are
+    among them."""
     files = sorted((REPO / PORT).rglob("*.py"))
     assert len(files) > 10
-    for rel in NEURAL_MODULES:
+    for rel in NEURAL_MODULES + HOST_MODULES:
         assert REPO / PORT / rel in files, rel
     for path in files:
         bad = [n for n in imported_modules(path)
                if n.split(".")[0] in FORBIDDEN]
         assert not bad, (path, bad)
+
+
+def test_native_loader_is_a_byte_identical_copy():
+    """The port builds the JAX package's C++ parser from its own copy."""
+    port = REPO / PORT / "native" / "loader.cpp"
+    jax = REPO / "lidar_ai_recommendation_software_tpu" / "native" \
+        / "loader.cpp"
+    assert port.read_bytes() == jax.read_bytes()

@@ -218,19 +218,26 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "tools/profile_torch_port.py"])
+                                    "tools/profile_torch_port.py",
+                                    f"{PORT}/cli.py"])
 def test_gpu_scripts_import_only_the_port(script):
-    """The scripts that run on the card import the port and nothing of
-    the JAX package."""
+    """The scripts that run on the card, and the port's CLI, import the
+    port and nothing of the JAX package."""
     names = imported_modules(REPO / script)
     assert any(n.startswith(PORT) for n in names), names
     bad = [n for n in names if n.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax",
         "lidar_ai_recommendation_software_tpu")]
     assert not bad, bad
-    # both drive the neural path and the centroid route, not only Pipeline
+    # the scripts drive the neural path and the centroid route, not only
+    # Pipeline, and chip_smoke.py drives the CLI too
     text = (REPO / script).read_text()
-    for needed in ("NeuralPipeline", "sa_mlp_pool", "fps_single",
-                   "3_000_000"):
+    needs = {"chip_smoke.py": ("NeuralPipeline", "sa_mlp_pool", "fps_single",
+                               "3_000_000", "cli.main"),
+             "tools/profile_torch_port.py": (
+                 "NeuralPipeline", "sa_mlp_pool", "fps_single", "3_000_000"),
+             f"{PORT}/cli.py": ("NeuralPipeline", "analyze_sequence",
+                                "FallbackPipeline", "save_params_npz")}
+    for needed in needs[script]:
         assert needed in text, (script, needed)
 
