@@ -73,8 +73,20 @@ Run from the root of a checkout. It
      host stages); the fixture's golden values, also under
      ``--fallback-cpu``, which must not degrade; ``--neural``;
      ``analyze-seq`` on the sequence's frames; ``train`` at its defaults,
-     its checkpoint served; ``bench`` at 1M;
- 10. prints the warm wall time of ``analyze`` at every size.
+     its checkpoint served; ``bench`` at 1M; and, in a child process,
+     ``analyze sample --fallback-cpu`` after a kernel read an illegal
+     address (a sticky CUDA error): raised, nothing answered from the CPU;
+ 10. drives the port's ``parallel/`` with four gloo ranks sharing the
+     card (``parallel.mesh.spawn``, the kernels built here first):
+     ``Pipeline.analyze`` of ``scaled_venue(10_000_000)`` (the JAX
+     package's census), then ``sharded_dbscan`` of the buffer that run
+     clustered, 4 ways, bit-equal to its single-process clustering; the
+     1M venue's density (``radius_count`` on each stripe) and flow equal
+     to the single card's internals; a default-width training step on a
+     dp 2 x mp 2 and a dp 4 mesh against the single-process step; the
+     halo round trip. Per case and rank: wall time, exchanges, staging
+     through the host, launches;
+ 11. prints the warm wall time of ``analyze`` at every size.
 
 Each pipeline run resets the launch counts just before it and reads them
 just after. The line before the last is a JSON record of the kernels; the
@@ -87,6 +99,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import io
 import json
 import math
@@ -2499,26 +2512,27 @@ CLI_RUNS = 3  # runs of the 1M scan's command, for the stages' medians
 
 
 class _Recorded:
-    """The calls of ``cls.method`` while the block runs, as (instance,
-    result) pairs: how the script reads what a CLI run computed beyond
-    what the CLI prints."""
+    """The calls of ``owner.name`` (a class's method or a module's
+    function) while the block runs, as (args, kwargs, result): how the
+    script reads what a run computed, and with what, beyond what it
+    prints. A method's instance is its first argument."""
 
-    def __init__(self, cls, method: str):
-        self.cls, self.method, self.calls = cls, method, []
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.calls = owner, name, []
 
     def __enter__(self):
-        original = self.original = getattr(self.cls, self.method)
+        original = self.original = getattr(self.owner, self.name)
 
-        def wrapper(obj, *args, **kwargs):
-            out = original(obj, *args, **kwargs)
-            self.calls.append((obj, out))
+        def wrapper(*args, **kwargs):
+            out = original(*args, **kwargs)
+            self.calls.append((args, kwargs, out))
             return out
 
-        setattr(self.cls, self.method, wrapper)
+        setattr(self.owner, self.name, wrapper)
         return self.calls
 
     def __exit__(self, *exc):
-        setattr(self.cls, self.method, self.original)
+        setattr(self.owner, self.name, self.original)
         return False
 
 
@@ -2611,7 +2625,7 @@ def run_cli_scan(big, out_1m, launches_1m, totals, ident: str) -> None:
 
     with _Recorded(Pipeline, "analyze") as calls:
         _, launches = timed_run("CLI 1M scan")
-    out = calls[0][1]
+    out = calls[0][2]
     got = json.load(open("out.json"))
     check_jax_reference({"density": got["density"], "flow": got["flow"],
                          "processed": out["processed"]},
@@ -2673,6 +2687,64 @@ def check_fallback_raises_kernel_faults() -> None:
           "degraded")
 
 
+# ``analyze sample --fallback-cpu`` in a child process whose pipeline, after
+# its analysis on the card, launches ``radius_count`` on people and a mask
+# at a device address near 0, which nothing maps (1 << 40 was mapped on the
+# card's machine): a sticky illegal-address error, which fails every later
+# CUDA call of the process (an in-process probe's too).
+STICKY_FAULT_CHILD = r"""
+import sys
+import torch
+from lidar_ai_recommendation_software_tpu_torch import cli
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+
+on_card = Pipeline.analyze_device
+
+
+def illegal_address(self, cloud, cfg):
+    out = on_card(self, cloud, cfg)
+    plan = kernels.radius_plan(512, 128)
+    centers = torch.zeros((512, 2), device="cuda")
+    counts = torch.empty(512, dtype=torch.int32, device="cuda")
+    bogus = 256
+    err = kernels.load_library().radius_count_launch(
+        centers.data_ptr(), bogus, bogus, 4.0, 512, 128,
+        plan.tiles_per_slice, *plan.grid, counts.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    torch.cuda.synchronize()
+    return out
+
+
+Pipeline.analyze_device = illegal_address
+sys.exit(cli.main(["analyze", "sample", "--fallback-cpu"]))
+"""
+
+
+def check_fallback_raises_sticky_faults(ident: str) -> None:
+    """``analyze --fallback-cpu`` in a child process whose kernel reads an
+    illegal address: the probe in a fresh process answers, so the child
+    raises the fault, exits non-zero and prints no degraded result."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", STICKY_FAULT_CHILD],
+                         cwd=REPO_ROOT, capture_output=True, text=True,
+                         timeout=300)
+    took = time.perf_counter() - t0
+    tail = res.stderr.strip().splitlines()[-3:]
+    print(f"--fallback-cpu child with a planted illegal address: exit "
+          f"{res.returncode} in {took:.3f} s on {ident}; stderr ends "
+          f"{tail}")
+    require(res.returncode != 0, "the sticky fault was not raised")
+    require("people detected" not in res.stdout
+            and "CPU oracle fallback" not in res.stderr
+            and "falling back to the CPU" not in res.stderr,
+            f"the sticky fault was answered from the CPU: {res.stdout} "
+            f"{res.stderr[-2000:]}")
+    require("illegal memory access" in res.stderr,
+            f"the child failed otherwise: {res.stderr[-2000:]}")
+
+
 def run_cli(big, out_1m, launches_1m, ident: str) -> dict:
     """The port's CLI on the card, in a temporary directory: the 1M scan
     from files, the fixture (also under ``--fallback-cpu``, which must not
@@ -2695,25 +2767,26 @@ def run_cli(big, out_1m, launches_1m, ident: str) -> dict:
             with _Recorded(Pipeline, "analyze") as calls:
                 _, launches = cli_run(["analyze", "sample"], "CLI fixture",
                                       totals)
-            check_golden(calls[0][1])
+            check_golden(calls[0][2])
             require(launches["radius_count"] == 1, f"the fixture launched "
                     f"radius_count {launches['radius_count']} times")
             with _Recorded(resilience.FallbackPipeline, "analyze") as calls:
                 _, launches = cli_run(["analyze", "sample",
                                        "--fallback-cpu"],
                                       "CLI fixture, --fallback-cpu", totals)
-            fallback, fout = calls[0]
+            (fallback, *_), _, fout = calls[0]
             require("degraded" not in fout and fallback.fallbacks == 0
                     and launches["radius_count"] == 1,
                     "--fallback-cpu degraded on a healthy card")
             check_golden(fout)
             print("--fallback-cpu on the card: not degraded, 0 fallbacks")
             check_fallback_raises_kernel_faults()
+            check_fallback_raises_sticky_faults(ident)
 
             with _Recorded(NeuralPipeline, "analyze") as calls:
                 _, launches = cli_run(["analyze", "sample", "--neural"],
                                       "CLI neural fixture", totals)
-            check_neural_reference(calls[0][1], JAX_NEURAL_FIXTURE,
+            check_neural_reference(calls[0][2], JAX_NEURAL_FIXTURE,
                                    "CLI, neural fixture")
             require(launches["fps_batched"] == 2
                     and launches["sa_mlp_pool"] == 2,
@@ -2726,7 +2799,7 @@ def run_cli(big, out_1m, launches_1m, ident: str) -> dict:
                 _, launches = cli_run(
                     ["analyze-seq", *(f"f{t}.npy" for t in range(len(frames))),
                      "--dt", str(SEQUENCE_DT)], "CLI sequence", totals)
-            seq = calls[0][1]
+            seq = calls[0][2]
             got = {"people": seq["density"]["total_people"],
                    "direction": seq["flow"]["dominant_direction"],
                    "avg_speed": seq["flow"]["avg_speed"]}
@@ -2773,6 +2846,418 @@ def run_cli(big, out_1m, launches_1m, ident: str) -> dict:
     print(f"launches over the CLI's runs: "
           f"{ {k: v for k, v in totals.items() if v} }")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# parallel/: four gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 4
+SCAN_10M = 10_000_000
+# the JAX package's census of scaled_venue(10_000_000) (README.md:331-333,
+# benchmarks/profile_10m.py): the clusters of ``dbscan_labels`` over the
+# whole padded cloud, ground included, under the fitted capacities; the
+# people of the pipeline
+JAX_CENSUS_10M = {"clusters": 634_179, "people": 443_907}
+PARALLEL_TRAIN = (("dp2 x mp2", (("dp", 2), ("mp", 2))),
+                  ("dp4", (("dp", 4), ("mp", 1))))
+PARALLEL_TRAIN_STEPS = 2
+# a sharded update against the single-process AdamW update of the same
+# reduced gradients: the same formula, rounded in another order
+# (``tests/test_torch_train.py``'s bound on one AdamW update)
+UPDATE_RTOL, UPDATE_ATOL_LR = 1e-6, 1e-4
+
+
+def parallel_rank(rank: int, outdir: str, inp: dict) -> None:
+    """One rank of the parallel phase (``parallel.mesh.spawn``: gloo, every
+    rank on the one card): each case with the launch counts set to 0 just
+    before it and read just after. Its wall time, its exchanges (their
+    seconds, the staging through the host apart) and its launches go to
+    ``rank{r}.json``, its results to ``rank{r}.npz`` (the 10M labels
+    from rank 0; the others' digest)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    from lidar_ai_recommendation_software_tpu_torch.parallel import (
+        cluster, spatial, trainer)
+    from lidar_ai_recommendation_software_tpu_torch.parallel import (
+        mesh as pmesh)
+
+    sp = pmesh.spatial_mesh()
+    arrays, records = {}, {}
+
+    def case(name, mesh, fn):
+        torch.cuda.synchronize()
+        before = dataclasses.replace(mesh.stats)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = mesh.stats
+        records[name] = {
+            "wall_s": wall, "exchanges": st.calls - before.calls,
+            "exchange_s": st.seconds - before.seconds,
+            "staging_s": st.staging_seconds - before.staging_seconds,
+            "staged_bytes": st.staged_bytes - before.staged_bytes,
+            "launches": {k: v for k, v in kernels.LAUNCHES.items() if v}}
+        return out
+
+    x = torch.arange(32.0, device=sp.device).reshape(32, 1)
+    arrays["halo"] = case("halo", sp, lambda: spatial.gather_stripes(
+        spatial.halo_exchange_x(x[8 * rank:8 * rank + 8], 2, sp)[None],
+        sp)).cpu().numpy()
+
+    scan = np.load(inp["scan"], mmap_mode="r")
+    labels = case("sharded DBSCAN, 10M", sp, lambda: cluster.sharded_dbscan(
+        scan, inp["eps"], inp["min_samples"], sp))
+    arrays["labels_digest"] = np.array(
+        hashlib.sha256(labels.tobytes()).hexdigest())
+    if rank == 0:
+        arrays["labels"] = labels
+
+    d = inp["density"]
+    arrays["density"] = case("density, 1M", sp, lambda: spatial.gather_stripes(
+        spatial.sharded_radius_density(
+            d["people"], d["people_mask"], d["origin"], d["nx"], d["ny"],
+            inp["cfg"], sp), sp)).cpu().numpy()
+    flow = case("flow, 1M", sp, lambda: [
+        spatial.gather_stripes(v, sp) for v in
+        spatial.sharded_flow_and_bottlenecks(d["mins"], d["maxs"],
+                                             d["uniforms"], inp["cfg"], sp)])
+    for name, v in zip(("vectors", "mags", "valid", "sev", "ok"), flow):
+        arrays[f"flow_{name}"] = v.cpu().numpy()
+
+    tcfg, batch = inp["train_cfg"], inp["batch"]
+    for tag, axes in PARALLEL_TRAIN:
+        tm = pmesh.make_mesh(axes)
+        step = trainer.make_sharded_train_step(tcfg, tm)
+        state = trainer.sharded_init(tcfg, tm)
+        arrays[f"{tag}_digest"] = np.array(train.weights_digest(
+            state.model.state_dict()))
+        # the first step warms up; the second, whose update reads the
+        # sliced moments, is the case
+        for t in range(PARALLEL_TRAIN_STEPS):
+            metrics = (case(f"train {tag}", tm, lambda: step(state, batch))
+                       if t == PARALLEL_TRAIN_STEPS - 1
+                       else step(state, batch))
+            arrays[f"{tag}_loss{t}"] = metrics["loss"].cpu().numpy()
+            for name, p in state.model.named_parameters():
+                arrays[f"{tag}_grad{t}:{name}"] = p.grad.cpu().numpy()
+                arrays[f"{tag}_param{t}:{name}"] = p.detach().cpu().numpy()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(records, f)
+
+
+def check_dp_shard_kernels(model, batch, cfg) -> dict:
+    """``fps_batched`` and ``sa_mlp_pool`` against their plain versions at
+    the shapes a dp rank's step gives them: the forward of the first dp
+    shard's rows of ``batch`` for each dp size of ``PARALLEL_TRAIN``, the
+    wrappers' calls recorded. Returns the largest error of each."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.models import (
+        crowdnet, train)
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        pointnet as P)
+
+    errs = {"fps_batched": 0, "sa_mlp_pool": 0}
+    for dp in sorted({dict(axes)["dp"] for _, axes in PARALLEL_TRAIN}):
+        rows = {k: v[:cfg.batch_size // dp] for k, v in batch.items()}
+        with _Recorded(crowdnet, "fps_batched") as fps, \
+                _Recorded(P, "sa_mlp_pool") as sa:
+            train.loss_fn(model, train.batch_tensors(rows, "cuda"), cfg)
+        require(len(fps) == 2 and len(sa) == 2,
+                f"dp {dp}: {len(fps)} fps_batched and {len(sa)} sa_mlp_pool "
+                f"calls in a forward, 2 each expected")
+        for args, kw, got in fps:
+            want = P.fps_reference(*args, **kw)
+            torch.cuda.synchronize()
+            err = int_err(got, want)
+            errs["fps_batched"] = max(errs["fps_batched"], err)
+            require(torch.equal(got, want), f"fps_batched differs from its "
+                    f"plain version on dp {dp}'s rows {tuple(args[0].shape)}")
+            print(f"fps_batched on a dp {dp} rank's rows: "
+                  f"{tuple(args[0].shape)} -> {tuple(got.shape)}, max_abs_err "
+                  f"{err}")
+        for args, kw, got in sa:
+            dtype = args[3] if len(args) > 3 else kw.get(
+                "compute_dtype", torch.float32)
+            tol = SA_BF16_TOL if dtype == torch.bfloat16 else SA_F32_TOL
+            with torch.no_grad():
+                want = P.sa_mlp_pool_reference(*args, **kw)
+            got = got.detach()  # the autograd function's output
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            errs["sa_mlp_pool"] = max(errs["sa_mlp_pool"],
+                                      float((got - want).abs().max()))
+            require(got.shape == want.shape and err <= tol,
+                    f"sa_mlp_pool off by {err} on dp {dp}'s rows "
+                    f"{tuple(args[0].shape)}")
+            print(f"sa_mlp_pool on a dp {dp} rank's rows: "
+                  f"{tuple(args[0].shape)} -> {tuple(got.shape)}, max "
+                  f"relative error {err:.3e} (tolerance {tol})")
+    return errs
+
+
+def run_parallel(pipe, big, ident: str) -> tuple:
+    """The port's ``parallel/`` with four gloo ranks on the card (the
+    kernels already built here): the 10M scan clustered 4 ways against
+    this process's clustering of the same buffer, the 1M venue's density
+    and flow against the single card's internals, a default-width step on
+    a dp 2 x mp 2 and a dp 4 mesh against the single-process step, and the
+    halo round trip. Every kernel of these paths is held against its plain
+    version at a rank's shapes. Returns the ranks' launches, summed, and
+    the largest error of each kernel held here."""
+    import numpy as np
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch import scaled_venue
+    from lidar_ai_recommendation_software_tpu_torch.models import flow as fm
+    from lidar_ai_recommendation_software_tpu_torch.models import train
+    from lidar_ai_recommendation_software_tpu_torch.ops import (
+        ccl, clustering)
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+    from lidar_ai_recommendation_software_tpu_torch.parallel import (
+        cluster as pcluster)
+    from lidar_ai_recommendation_software_tpu_torch.parallel import (
+        mesh as pmesh)
+    from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
+
+    dev = torch.device("cuda", 0)
+    errs = {}
+
+    def h(t):
+        return t.cpu().numpy()
+
+    def held(res):
+        for k, e in res["errs"].items():
+            errs[k] = max(errs.get(k, 0), e)
+
+    t0 = time.perf_counter()
+    scan = scaled_venue(SCAN_10M)
+    print(f"scaled_venue({SCAN_10M:,}) in {time.perf_counter() - t0:.3f} "
+          f"s (host)")
+    with _Recorded(ccl, "dbscan_gs") as calls:
+        t0 = time.perf_counter()
+        out, launches = traced(lambda: pipe.analyze(scan), "10M-point")
+        first = time.perf_counter() - t0
+    require_one_pass(launches, "the 10M-point run")
+    t0 = time.perf_counter()
+    pipe.analyze(scan)
+    torch.cuda.synchronize()
+    print(f"analyze of the 10M scan: {first:.3f} s first, "
+          f"{time.perf_counter() - t0:.3f} s warm (synchronised) on {ident}")
+    cap = pipe.fit_capacity(scan).capacity
+    pre = pipe.config.preprocess
+    whole = PointCloud.from_numpy(scan, cap.max_points, device="cuda")
+    _, n_whole, ov_whole = clustering.dbscan_labels(
+        whole.points, whole.mask, pre.dbscan_eps, pre.dbscan_min_samples,
+        ncx=cap.cluster_cells_x, ncy=cap.cluster_cells_y,
+        column_cap=cap.cluster_column_cap, max_iters=cap.max_cc_iters)
+    census = {"clusters": int(n_whole),
+              "people": out["density"]["total_people"]}
+    print(f"10M census {census} (the whole cloud's clusters, "
+          f"{int(ov_whole)} points past a column's cap of "
+          f"{cap.cluster_column_cap}; the pipeline's people, of its "
+          f"{int(out['processed'].n_clusters):,} non-ground clusters); the "
+          f"JAX package's (recorded) {JAX_CENSUS_10M}")
+    require(census == JAX_CENSUS_10M, f"10M census {census}")
+    del whole
+    (pts, mask, eps, min_samples), kw, (single, n_single, ov) = calls[-1]
+    require(int(ov) == 0, "the recorded clustering overflowed")
+    pts, valid, single = h(pts), h(mask), h(single)
+    require((single[~valid] == -1).all(), "a masked point has a label")
+    print(f"its clustering: {int(valid.sum()):,} of {len(valid):,} buffer "
+          f"points, {int(n_single):,} clusters, {kw}")
+    del out, scan, calls, mask
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    held(check_column_case(
+        dev, "10M analyze's buffer", pts, valid, eps,
+        min_samples, kw["ncx"], kw["ncy"], kw["column_cap"], timed=False))
+    print(f"the column kernels at the 10M buffer against their plain "
+          f"versions: {time.perf_counter() - t0:.3f} s")
+
+    cfg = pipe.fit_capacity(big)
+    cloud = PointCloud.from_numpy(big, cfg.capacity.max_points,
+                                  device="cuda")
+    (processed, people, res), cfg = pipe._run_exact(pipe.analyze_device,
+                                                     cloud, cfg)
+    require(int(res.density.radius_overflow) == 0, "bucket overflow at 1M")
+    u = pipe._uniforms
+    _, mag1, valid1, _, _ = fm.synthesize_flow(processed, u, cfg)
+    sev1, ok1 = fm._bottlenecks_monolith(mag1, valid1, cfg)
+
+    tcfg = train.TrainConfig()
+    batch = train.make_batch(np.random.RandomState(tcfg.seed), tcfg)
+    ref = train.init_state(tcfg, device="cuda")
+    digest = train.weights_digest(ref.model.state_dict())
+    held({"errs": check_dp_shard_kernels(ref.model, batch, tcfg)})
+    tensors = train.batch_tensors(batch, "cuda")
+    ref_losses = []
+    for t in range(PARALLEL_TRAIN_STEPS):
+        ref_losses.append(float(train.train_step(ref, tensors, tcfg)["loss"]))
+        if t == 0:
+            ref_grads = {n: h(p.grad) for n, p in
+                         ref.model.named_parameters()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "scan.npy"),
+                np.ascontiguousarray(pts[valid]))
+        inp = {"scan": os.path.join(tmp, "scan.npy"), "eps": eps,
+               "min_samples": min_samples, "cfg": cfg, "train_cfg": tcfg,
+               "batch": batch,
+               "density": {"people": h(people.positions),
+                           "people_mask": h(people.mask),
+                           "origin": h(processed.mins[:2]),
+                           "nx": int(res.density.nx),
+                           "ny": int(res.density.ny),
+                           "mins": h(processed.mins[:2]),
+                           "maxs": h(processed.maxs[:2]),
+                           "uniforms": h(u)}}
+        t0 = time.perf_counter()
+        pmesh.spawn(parallel_rank, PARALLEL_RANKS, tmp, inp)
+        print(f"{PARALLEL_RANKS} gloo ranks on the card, spawned to ended: "
+              f"{time.perf_counter() - t0:.3f} s")
+        got = [dict(np.load(os.path.join(tmp, f"rank{r}.npz")))
+               for r in range(PARALLEL_RANKS)]
+        records = []
+        for r in range(PARALLEL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                records.append(json.load(f))
+
+    totals = {k: 0 for k in kernels.LAUNCHES}
+    for name in records[0]:
+        for r, rec in enumerate(records):
+            c = rec[name]
+            print(f"parallel {name}, rank {r}: wall {c['wall_s'] * 1e3:.3f} "
+                  f"ms, {c['exchanges']} exchanges {c['exchange_s'] * 1e3:.3f}"
+                  f" ms of which staging through the host "
+                  f"{c['staging_s'] * 1e3:.3f} ms "
+                  f"({c['staged_bytes'] / 1e6:.3f} MB), launches "
+                  f"{c['launches']} on {ident}")
+            for k, v in c["launches"].items():
+                totals[k] += v
+    for r, rec in enumerate(records):
+        lc = rec["sharded DBSCAN, 10M"]["launches"]
+        tries = lc.get("table_fill", 0)
+        require(tries >= 1 and lc.get("column_counts") == tries
+                and lc.get("border_min") == tries
+                and lc.get("propagate") == 3 * tries
+                and set(lc) == {"table_fill", "column_counts", "propagate",
+                                "border_min"},
+                f"rank {r}'s sharded clustering launched {lc}")
+        require(rec["density, 1M"]["launches"] == {"radius_count": 1},
+                f"rank {r}'s density launched "
+                f"{rec['density, 1M']['launches']}")
+        for tag, _ in PARALLEL_TRAIN:
+            lt = rec[f"train {tag}"]["launches"]
+            require(lt == {"fps_batched": 2, "sa_mlp_pool": 2},
+                    f"rank {r}'s {tag} step launched {lt}")
+    require(len({rec["sharded DBSCAN, 10M"]["launches"].get("table_fill")
+                 for rec in records}) == 1, "ranks retried apart")
+
+    halo = got[0]["halo"][:, :, 0]
+    require(np.array_equal(halo[1], [6, 7, *range(8, 16), 16, 17])
+            and (halo[0, :2] == 0).all() and (halo[3, -2:] == 0).all()
+            and np.array_equal(halo[2], [14, 15, *range(16, 24), 24, 25]),
+            f"halo round trip {halo}")
+    print("halo round trip on the card: equal to the JAX package's rule")
+
+    lab = got[0]["labels"]
+    require(all(str(g["labels_digest"]) == str(got[0]["labels_digest"])
+                for g in got), "ranks' 10M labels differ")
+    n = len(lab)
+    reps = np.unique(lab[lab >= 0])
+    dense = np.full(n + 1, -1, np.int64)
+    dense[reps] = np.arange(len(reps))
+    sharded = np.where(lab >= 0, dense[np.clip(lab, 0, n)], -1)
+    require(np.array_equal(sharded, single[valid]) and len(reps) == int(
+        n_single), "4-rank labels differ from the single-process clustering")
+    print(f"sharded DBSCAN, 10M: {n:,} points, {len(reps):,} clusters, "
+          f"labels bit-equal to the single-process clustering of the same "
+          f"buffer")
+    # the column kernels at an interior rank's table: its stripe and
+    # halo, the grid and the cap its last try took
+    t0 = time.perf_counter()
+    stripes = pts[valid]
+    bufs, bvalid, _, _ = pcluster.partition_stripes(stripes, PARALLEL_RANKS,
+                                                    halo=eps)
+    ncx, ncy, cap0 = pcluster.column_grid(stripes, PARALLEL_RANKS, eps,
+                                          bufs.shape[1])
+    tries = records[1]["sharded DBSCAN, 10M"]["launches"]["table_fill"]
+    held(check_column_case(
+        dev, "rank 1's table of the 10M scan", bufs[1], bvalid[1], eps,
+        min_samples, ncx, ncy, cap0 << (tries - 1), timed=False))
+    print(f"the column kernels at rank 1's table ({bufs.shape[1]:,} slots, "
+          f"{ncx} x {ncy} columns, cap {cap0 << (tries - 1)} after {tries} "
+          f"tries) against their plain versions: "
+          f"{time.perf_counter() - t0:.3f} s")
+    del stripes, bufs, bvalid
+
+    grid1 = h(res.density.density_grid)
+    derr = max(float(np.abs(g["density"] - grid1).max()) for g in got)
+    require(derr <= 1e-6, f"sharded density off by {derr}")
+    print(f"sharded density, 1M: {grid1.shape} grid, max |sharded - single "
+          f"card (bucketed)| {derr}, max density {grid1.max()}")
+    mag1, valid1, sev1, ok1 = (h(mag1), h(valid1), h(sev1), h(ok1))
+    merr = max(float(np.abs(g["flow_mags"] - mag1).max()) for g in got)
+    require(merr <= 1e-5, f"sharded flow: mags off by {merr}")
+    for g in got:
+        require(np.array_equal(g["flow_valid"], valid1)
+                and np.array_equal(g["flow_ok"], ok1)
+                and np.array_equal(g["flow_sev"][ok1], sev1[ok1]),
+                "sharded flow: valid nodes, bottlenecks or severities "
+                "differ")
+    print(f"sharded flow, 1M: max |mags - single card| {merr}, valid, "
+          f"{int(ok1.sum())} bottleneck nodes and their severities equal")
+
+    for tag, _ in PARALLEL_TRAIN:
+        g0 = got[0]
+        require(str(g0[f"{tag}_digest"]) == digest, f"{tag}: other weights")
+        losses = [float(g0[f"{tag}_loss{t}"])
+                  for t in range(PARALLEL_TRAIN_STEPS)]
+        worst = 0.0
+        for name, want in ref_grads.items():
+            rel = float(np.linalg.norm(g0[f"{tag}_grad0:{name}"] - want)
+                        / np.linalg.norm(want))
+            worst = max(worst, rel)
+            require(rel <= TRAIN_GRAD_TOL, f"{tag}: gradient {name} {rel}")
+        for loss, want in zip(losses, ref_losses):
+            require(abs(loss - want) <= TRAIN_LOSS_TOL * abs(want),
+                    f"{tag}: losses {losses} vs {ref_losses}")
+        # each step's parameters: the single-process AdamW update of the
+        # step's reduced gradients, from the parameters before it, so the
+        # second update holds the sliced moments to the whole ones
+        replay = train.init_state(tcfg, device="cuda")
+        worst_update = 0.0
+        for t in range(PARALLEL_TRAIN_STEPS):
+            lr = replay.schedule(replay.step)
+            for name, p in replay.model.named_parameters():
+                p.grad = torch.from_numpy(g0[f"{tag}_grad{t}:{name}"]).to(
+                    p.device)
+            train.apply_update(replay)
+            for name, p in replay.model.named_parameters():
+                want = h(p.detach())
+                diff = np.abs(g0[f"{tag}_param{t}:{name}"] - want)
+                worst_update = max(worst_update, float(diff.max()) / lr)
+                require(bool((diff <= UPDATE_RTOL * np.abs(want)
+                              + UPDATE_ATOL_LR * lr).all()),
+                        f"{tag}: step {t}'s update of {name} off the "
+                        f"single-process update by {float(diff.max())}")
+        for g in got[1:]:
+            require(all(np.array_equal(g[k], g0[k]) for k in g0
+                        if k.startswith(tag)), f"{tag}: ranks differ")
+        print(f"train {tag}, default width: losses {losses} vs "
+              f"single-process {ref_losses}; worst first-step gradient "
+              f"{worst:.3e} relative; {PARALLEL_TRAIN_STEPS} updates within "
+              f"{worst_update:.3e} x lr of the single-process AdamW update "
+              f"of the same gradients (tolerance {UPDATE_RTOL} relative + "
+              f"{UPDATE_ATOL_LR} x lr); every rank the same")
+    return totals, errs
 
 
 def main() -> int:
@@ -2926,6 +3411,11 @@ def main() -> int:
     launches_cli = run_cli(big, out_1m, launches_1m, ident)
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
+    phase(f"parallel/: {PARALLEL_RANKS} gloo ranks on the card")
+    t0 = time.perf_counter()
+    launches_parallel, errs_parallel = run_parallel(pipe, big, ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
     phase("warm wall time of analyze on the card")
     for name, pts in (("10,000-point fixture", fixture),
                       *((f"{n:,}-point venue", v)
@@ -2944,12 +3434,16 @@ def main() -> int:
                     graph_ms=radius["graph_ms"], plain_ms=radius["plain_ms"],
                     bound_ms=radius["bound_ms"],
                     bound_by=radius["bound_by"], library_ms=None,
-                    cli_launches=launches_cli["radius_count"])]
+                    cli_launches=launches_cli["radius_count"],
+                    parallel_launches=launches_parallel["radius_count"])]
     for k in COLUMN_KERNELS:
         records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
                             replaces=KERNELS[k][1], launches=launches_1m[k],
-                            max_abs_err=cols["errs"][k], **cols["times"][k],
-                            library_ms=None, cli_launches=launches_cli[k]))
+                            max_abs_err=max(cols["errs"][k],
+                                            errs_parallel.get(k, 0)),
+                            **cols["times"][k],
+                            library_ms=None, cli_launches=launches_cli[k],
+                            parallel_launches=launches_parallel[k]))
     # launches: place_dense in the 3M scan's analyze, fps_single in the
     # 100,000-point layer, fps_batched and sa_mlp_pool in one served analyze
     # (their times and bounds: the mean over that analyze's two launch
@@ -2966,9 +3460,12 @@ def main() -> int:
         extra = {f"{path}_launches": counts[k] for path, counts in (
             ("train_step", launches_train), ("layer_1m", launches_layer_1m))
             if counts[k]}
+        rec = {**rec, "max_abs_err": max(rec["max_abs_err"],
+                                         errs_parallel.get(k, 0))}
         records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
                             replaces=KERNELS[k][1], launches=launches[k],
-                            **rec, **extra, cli_launches=launches_cli[k]))
+                            **rec, **extra, cli_launches=launches_cli[k],
+                            parallel_launches=launches_parallel[k]))
     require([r["name"] for r in records] == list(KERNELS), "kernel records")
     require(all(r["graph_ms"] > 0 for r in records),
             "every kernel timed from a CUDA graph")

@@ -31,6 +31,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -194,14 +195,14 @@ def _radius_sq(radius: float) -> np.float32:
 # ---------------------------------------------------------------------------
 
 def radius_count_reference(centers: torch.Tensor, people: torch.Tensor,
-                           pmask: torch.Tensor, radius: float
-                           ) -> torch.Tensor:
+                           pmask: torch.Tensor, radius: float,
+                           r2: Optional[np.float32] = None) -> torch.Tensor:
     """Plain PyTorch version: (C,) int32 count of valid people within
     ``radius`` (inclusive) of each centre, chunked over centres so no
     (C, K) tensor is built at once."""
     c, k = centers.shape[0], people.shape[0]
-    r2 = torch.tensor(_radius_sq(radius), dtype=centers.dtype,
-                      device=centers.device)
+    r2 = torch.tensor(_radius_sq(radius) if r2 is None else r2,
+                      dtype=centers.dtype, device=centers.device)
     chunk = max(1, PAIRS_PER_CHUNK // max(k, 1))
     out = [torch.zeros(0, dtype=torch.int32, device=centers.device)]
     for s in range(0, c, chunk):
@@ -251,8 +252,13 @@ def radius_plan(c: int, k: int) -> RadiusPlan:
 
 
 def radius_count(centers: torch.Tensor, people: torch.Tensor,
-                 pmask: torch.Tensor, radius: float) -> torch.Tensor:
-    """Count valid people within ``radius`` (inclusive) of each centre.
+                 pmask: torch.Tensor, radius: float,
+                 r2: Optional[np.float32] = None) -> torch.Tensor:
+    """Count valid people within ``radius`` (inclusive) of each centre:
+    squared distances at most ``r2``, by default radius^2 rounded once
+    from float64 (``_radius_sq``, the JAX package's kernel); the sharded
+    density hands over float32(radius) squared in float32, as its JAX
+    counterpart squares it.
 
     centers (C, 2) float32, people (K, 2) float32, pmask (K,) bool ->
     (C,) int32. CPU tensors take the plain version; CUDA tensors take the
@@ -260,7 +266,7 @@ def radius_count(centers: torch.Tensor, people: torch.Tensor,
     allocation and one launch function (a zeroing of the output and the
     kernel), no read of the device."""
     if centers.device.type == "cpu":
-        return radius_count_reference(centers, people, pmask, radius)
+        return radius_count_reference(centers, people, pmask, radius, r2)
     dev = _cuda_device(centers, "radius_count")
     c, k = centers.shape[0], people.shape[0]
     _check("centers", centers, torch.float32, (c, 2), dev)
@@ -274,7 +280,8 @@ def radius_count(centers: torch.Tensor, people: torch.Tensor,
     with torch.cuda.device(dev):
         out = torch.empty(c, dtype=torch.int32, device=dev)
         err = fn(centers.data_ptr(), people.data_ptr(), pmask.data_ptr(),
-                 float(_radius_sq(radius)), c, k, plan.tiles_per_slice,
+                 float(_radius_sq(radius) if r2 is None else r2), c, k,
+                 plan.tiles_per_slice,
                  *plan.grid, out.data_ptr(), _stream(dev))
         if plan.grid[0] and plan.grid[1]:
             LAUNCHES["radius_count"] += 1

@@ -7,17 +7,25 @@ fall off the bus and drivers wedge. This module provides:
   - ``device_healthy``: a bounded-time liveness probe (a 128 x 128
     matmul on the device with a host read-back, executed in a watchdog
     thread so a wedged device cannot hang the caller);
+  - ``device_answers_in_subprocess``: the same matmul in a fresh
+    process, which gets a CUDA context of its own on the same device, so
+    a sticky error of this process's context (an illegal address or a
+    failed launch in a kernel, which every later call of the process
+    reports again) does not read as a lost card;
   - ``FallbackPipeline``: runs the card's pipeline, and when it fails on a
-    card that no longer answers the probe, degrades to the port's own
-    ``Pipeline(config, device="cpu")``, whose results equal the card's
-    (``chip_smoke.py``) and the JAX package's (the tests), so callers keep
-    working through an outage at CPU speed. It degrades only when a caller
-    asks for it (``--fallback-cpu``); any other failure is raised.
+    card that no longer answers the subprocess probe, degrades to the
+    port's own ``Pipeline(config, device="cpu")``, whose results equal
+    the card's (``chip_smoke.py``) and the JAX package's (the tests), so
+    callers keep working through an outage at CPU speed. It degrades only
+    when a caller asks for it (``--fallback-cpu``); any other failure is
+    raised.
 """
 
 from __future__ import annotations
 
 import logging
+import subprocess
+import sys
 import threading
 import time
 from typing import Dict
@@ -89,8 +97,37 @@ def device_healthy(timeout_s: float = 10.0, attempts: int = 3,
     return False
 
 
-# the probe's budget when a pipeline failure asks whether the card is gone
-HEALTH_TIMEOUT_S = 20.0
+# the probe's budget when a pipeline failure asks whether the card is gone:
+# a fresh interpreter imports torch and makes a CUDA context first
+HEALTH_TIMEOUT_S = 60.0
+
+# The subprocess probe: ``matmul_probe``'s matmul on the device named by
+# the first argument; exit 0 when it returns the right sum.
+_PROBE_CODE = (
+    "import sys, torch\n"
+    "x = torch.ones((128, 128), device=sys.argv[1])\n"
+    "sys.exit(0 if float((x @ x).sum()) == 128.0 ** 3 else 1)\n")
+
+
+def device_answers_in_subprocess(device: torch.device | str = "cuda",
+                                 timeout_s: float = HEALTH_TIMEOUT_S
+                                 ) -> bool:
+    """True when a fresh Python process runs a 128 x 128 matmul on
+    ``device`` and exits 0 within ``timeout_s`` (the child is killed at the
+    limit). The child's CUDA context is its own: an error that poisoned
+    this process's context does not reach it."""
+    try:
+        res = subprocess.run([sys.executable, "-c", _PROBE_CODE,
+                              str(device)], capture_output=True, text=True,
+                             timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        logger.warning("device probe in a subprocess timed out (%.0fs)",
+                       timeout_s)
+        return False
+    if res.returncode != 0:
+        logger.warning("device probe in a subprocess failed (exit %d): %s",
+                       res.returncode, res.stderr.strip()[-2000:])
+    return res.returncode == 0
 
 
 class FallbackPipeline:
@@ -99,8 +136,10 @@ class FallbackPipeline:
     (``chip_smoke.py`` holds them equal).
 
     A failure on a card that still answers the probe is re-raised: a
-    kernel that does not build or launch, or a bad shape, is a fault of
-    the program, never a reason to compute on the CPU instead.
+    kernel that does not build or launch, reads an illegal address, or a
+    bad shape, is a fault of the program, never a reason to compute on the
+    CPU instead. The probe runs in a subprocess, since a sticky CUDA error
+    fails every later call of this process, a probe's too.
     """
 
     def __init__(self, pipeline=None):
@@ -111,11 +150,8 @@ class FallbackPipeline:
         try:
             return self.pipeline.analyze(points)
         except Exception as e:
-            # attempts=1: the probe gates a *fast failover* to the CPU —
-            # retrying transients here would delay degraded-mode results
-            # by minutes
-            if device_healthy(HEALTH_TIMEOUT_S, attempts=1,
-                              device=self.pipeline.device):
+            # one attempt: the probe gates a fast failover to the CPU
+            if device_answers_in_subprocess(self.pipeline.device):
                 raise
             logger.error("device pipeline failed (%s) and the device is "
                          "lost; falling back to the CPU", e)

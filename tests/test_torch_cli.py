@@ -311,10 +311,10 @@ def card_fails_once(monkeypatch):
         return analyze(self, points)
 
     def lost(device):
-        raise RuntimeError("simulated device loss")
+        return False
 
     monkeypatch.setattr(Pipeline, "analyze", fails_once)
-    monkeypatch.setattr(resilience, "matmul_probe", lost)
+    monkeypatch.setattr(resilience, "device_answers_in_subprocess", lost)
     return calls
 
 

@@ -36,6 +36,9 @@ HOST_MODULES = ("cli.py", "compat.py", "app.py", "desktop.py",
                 "utils/io.py", "utils/native.py", "utils/store.py",
                 "utils/viz.py", "utils/report.py", "utils/profiling.py",
                 "utils/resilience.py", "utils/project.py")
+# the sharded analytics and training over torch.distributed
+PARALLEL_MODULES = ("parallel/mesh.py", "parallel/spatial.py",
+                    "parallel/cluster.py", "parallel/trainer.py")
 
 
 @pytest.mark.parametrize("name", ["MONOLITH_CONFIG", "MODULAR_CONFIG"])
@@ -100,11 +103,11 @@ def test_recommendations_copy_equals_jax(request, source):
 def test_port_package_imports_nothing_of_jax():
     """Every module of the port, read with ``ast``: no import of the JAX
     package, jax, jaxlib, flax, optax or orbax, at any depth (function
-    bodies too); the modules of the neural path and the front-ends are
-    among them."""
+    bodies too); the modules of the neural path, the front-ends and
+    ``parallel/`` are among them."""
     files = sorted((REPO / PORT).rglob("*.py"))
     assert len(files) > 10
-    for rel in NEURAL_MODULES + HOST_MODULES:
+    for rel in NEURAL_MODULES + HOST_MODULES + PARALLEL_MODULES:
         assert REPO / PORT / rel in files, rel
     for path in files:
         bad = [n for n in imported_modules(path)

@@ -7,6 +7,7 @@ as ``tests/test_torch_pipeline.py`` holds the pipelines).
 """
 
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -322,7 +323,8 @@ def test_fallback_pipeline_degrades_to_the_cpu(fixture_points, monkeypatch):
         raise RuntimeError("device lost")
 
     monkeypatch.setattr(fp.pipeline, "analyze", boom)
-    monkeypatch.setattr(resilience, "matmul_probe", boom)
+    monkeypatch.setattr(resilience, "device_answers_in_subprocess",
+                        lambda device: False)
     out = fp.analyze(fixture_points)
     assert out["degraded"] is True
     assert fp.fallbacks == 1
@@ -357,13 +359,60 @@ def test_fallback_pipeline_reraises_on_a_healthy_device(fixture_points,
 
     def probe(device):
         probes.append(torch.device(device).type)
-        return 1.0
+        return True
 
     monkeypatch.setattr(fp.pipeline, "analyze", launch_fails)
-    monkeypatch.setattr(resilience, "matmul_probe", probe)
+    monkeypatch.setattr(resilience, "device_answers_in_subprocess", probe)
     with pytest.raises(RuntimeError, match="launch failed"):
         fp.analyze(fixture_points)
     assert fp.fallbacks == 0 and probes == ["cpu"]
+
+
+@pytest.mark.parametrize("probe", ["answers", "fails", "times_out"])
+def test_fallback_pipeline_probes_in_a_subprocess(fixture_points,
+                                                  monkeypatch, probe):
+    """After a failure that poisons this process's device (a sticky CUDA
+    error, which the in-process probe would report again), the probe runs
+    in a fresh process: the failure is raised when that process answers,
+    and the CPU answers when it fails or times out."""
+    import subprocess
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    fp = resilience.FallbackPipeline(Pipeline(device="cpu"))
+    runs = []
+
+    def sticky(points):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    def run(argv, **kw):
+        runs.append((argv, kw["timeout"]))
+        if probe == "times_out":
+            raise subprocess.TimeoutExpired(argv, kw["timeout"])
+        return subprocess.CompletedProcess(
+            argv, 0 if probe == "answers" else 1, "", "probe failed")
+
+    monkeypatch.setattr(fp.pipeline, "analyze", sticky)
+    monkeypatch.setattr(resilience, "matmul_probe", sticky)
+    monkeypatch.setattr(resilience.subprocess, "run", run)
+    if probe == "answers":
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            fp.analyze(fixture_points)
+        assert fp.fallbacks == 0
+    else:
+        out = fp.analyze(fixture_points)
+        assert out["degraded"] is True and fp.fallbacks == 1
+        assert out["density"]["total_people"] == 446
+    (argv, timeout), = runs
+    assert argv[:2] == [sys.executable, "-c"] and argv[3] == "cpu"
+    assert timeout == resilience.HEALTH_TIMEOUT_S
+
+
+def test_subprocess_probe_runs_the_matmul():
+    """The real probe: a fresh interpreter runs the matmul on the CPU and
+    exits 0; on a device it cannot reach it exits non-zero."""
+    assert resilience.device_answers_in_subprocess("cpu", timeout_s=120.0)
+    assert not resilience.device_answers_in_subprocess("meta-device",
+                                                       timeout_s=120.0)
 
 
 def test_fallback_pipeline_default_needs_the_card():
