@@ -86,7 +86,16 @@ Run from the root of a checkout. It
      dp 2 x mp 2 and a dp 4 mesh against the single-process step; the
      halo round trip. Per case and rank: wall time, exchanges, staging
      through the host, launches;
- 11. prints the warm wall time of ``analyze`` at every size.
+ 11. prints the warm wall time of ``analyze`` at every size;
+ 12. measures the reference's CPU baseline on the card's host with the
+     port's oracle (``oracle/reference.py``, NumPy and SciPy): the
+     fixture's golden values from the oracle, the card's people and
+     density grid equal to it (monolith; modular within the JAX package's
+     tests' tolerances); on ``bench.py``'s ``scaled_venue(100_000)`` the
+     oracle's ``analyze`` once on the host's clock (``cpu_points_per_sec``
+     and its stages) and the card's density grid at MAE 0 with the same
+     people; then the warm 1M ``analyze``'s points/s and its ratio to
+     ``cpu_points_per_sec``, beside the card and the host's CPU model.
 
 Each pipeline run resets the launch counts just before it and reads them
 just after. The line before the last is a JSON record of the kernels; the
@@ -3260,6 +3269,114 @@ def run_parallel(pipe, big, ident: str) -> tuple:
     return totals, errs
 
 
+# ---------------------------------------------------------------------------
+# the reference's CPU baseline
+# ---------------------------------------------------------------------------
+
+def host_cpu() -> str:
+    """The host's CPU as its first ``/proc/cpuinfo`` entry names it (a
+    virtual machine may hide the model name, not the family and model
+    numbers), and its logical cores."""
+    info = {}
+    with contextlib.suppress(OSError):
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            if not line.strip():
+                break
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    return (f"CPU '{info.get('model name', '?')}' ({info.get('vendor_id')} "
+            f"family {info.get('cpu family')} model {info.get('model')}, "
+            f"{info.get('cpu MHz')} MHz), {os.cpu_count()} logical cores")
+
+
+def check_modular_against_oracle(card, oracle) -> None:
+    """The card's modular ``analyze`` against the oracle's, to the
+    tolerances of ``tests/test_pipeline.py::TestModularParity``."""
+    import numpy as np
+    d, od = card["density"], oracle["density"]
+    f, of = card["flow"], oracle["flow"]
+    g, og = d["density_map"], od["density_map"]
+    require(d["total_people"] == od["total_people"], "modular: people")
+    require(g.shape == og.shape and float(np.abs(g - og).mean()) < 0.01,
+            "modular: density_map")
+    require(abs(d["avg_density"] - od["avg_density"]) < 1e-3,
+            "modular: avg_density")
+    require(abs(d["max_density"] - od["max_density"]) < 1e-6,
+            "modular: max_density")
+    require(abs(f["avg_speed"] - of["avg_speed"]) < 1e-5,
+            "modular: avg_speed")
+    require(f["dominant_direction"] == of["dominant_direction"],
+            "modular: direction")
+    require([b["severity"] for b in f["bottlenecks"]]
+            == [b["severity"] for b in of["bottlenecks"]],
+            "modular: bottleneck severities")
+
+
+def run_oracle_baseline(pipe, fixture, ms_1m: float, ident: str) -> None:
+    """The reference's CPU baseline on this host: the port's oracle
+    (NumPy and SciPy, ``oracle/reference.py``) gives the fixture's golden
+    values, and the card's ``analyze`` its people and density grid
+    exactly (monolith) and within the JAX package's tests' tolerances
+    (modular); on ``bench.py``'s 100,000-point cloud the oracle's
+    ``analyze`` is timed once on the host's clock (``cpu_points_per_sec``)
+    and the card's density grid, through ``radius_count`` and the column
+    kernels, must equal it (MAE 0) with the same people; the warm 1M
+    ``analyze``'s points/s are set against it."""
+    import numpy as np
+    from lidar_ai_recommendation_software_tpu_torch import (
+        MODULAR_CONFIG, scaled_venue)
+    from lidar_ai_recommendation_software_tpu_torch.oracle import (
+        reference as ref)
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    from tools.oracle_stages import POINTS, stages
+
+    cpu = host_cpu()
+    print(f"host: {cpu}")
+    oracle = ref.analyze(fixture, variant="monolith")
+    print("the port's oracle on the seed-42 fixture:")
+    check_golden(oracle)
+    card = pipe.analyze(fixture)
+    require(card["density"]["total_people"]
+            == oracle["density"]["total_people"], "fixture: people")
+    require(np.array_equal(card["density"]["density_grid"],
+                           oracle["density"]["density_grid"]),
+            "fixture: the card's density grid differs from the oracle's")
+    modular = Pipeline(MODULAR_CONFIG, device="cuda").analyze(fixture)
+    check_modular_against_oracle(modular,
+                                 ref.analyze(fixture, variant="modular"))
+    print("fixture: the card's monolith people and density grid equal the "
+          "oracle's; its modular run within tests/test_pipeline.py's "
+          "tolerances of the oracle's")
+
+    cloud = scaled_venue(POINTS)
+    seconds, out = stages(ref, cloud)
+    density = out["density"]
+    cpu_pps = POINTS / seconds["whole"]
+    print(f"oracle analyze of scaled_venue({POINTS:,}), once, host "
+          "clock: " + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+          + f"; cpu_points_per_sec {cpu_pps:.1f} on {cpu}, beside {ident}")
+    card, launches = traced(lambda: pipe.analyze(cloud),
+                            f"{POINTS:,}-point")
+    for k in ("radius_count", *COLUMN_PATH):
+        require(launches[k] > 0, f"the {POINTS:,}-point run did not "
+                f"launch {k}")
+    g, og = card["density"]["density_grid"], density["density_grid"]
+    require(g.shape == og.shape, f"100,000 points: density grid shape "
+            f"{g.shape} vs the oracle's {og.shape}")
+    mae = float(np.abs(g - og).mean())
+    people = card["density"]["total_people"]
+    parity = people == density["total_people"]
+    print(f"card analyze of the same cloud on {ident}: "
+          f"density_mae_vs_oracle_100k {mae}, people_parity_100k {parity} "
+          f"({people} people, the oracle {density['total_people']})")
+    require(mae == 0.0, f"density_mae_vs_oracle_100k {mae}")
+    require(parity, "people_parity_100k")
+    pps = 1e9 / ms_1m
+    print(f"1,000,000-point analyze, warm median {ms_1m:.3f} ms: "
+          f"{pps:.1f} points/s on {ident}; {pps / cpu_pps:.3f} x the "
+          f"oracle's cpu_points_per_sec ({cpu_pps:.1f}) on {cpu}")
+
+
 def main() -> int:
     import torch
 
@@ -3417,14 +3534,21 @@ def main() -> int:
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("warm wall time of analyze on the card")
+    warm_ms = {}
     for name, pts in (("10,000-point fixture", fixture),
                       *((f"{n:,}-point venue", v)
                         for n, v in venues.items())):
         t0 = time.perf_counter()
-        ms = wall_ms(lambda: pipe.analyze(pts))
+        warm_ms[name] = ms = wall_ms(lambda: pipe.analyze(pts))
         print(f"analyze {name}: median {ms:.3f} ms of 5 (warm, "
               f"synchronised) on {ident}; phase "
               f"{time.perf_counter() - t0:.3f} s")
+
+    phase("the reference's CPU baseline on the card's host")
+    t0 = time.perf_counter()
+    run_oracle_baseline(pipe, fixture, warm_ms["1,000,000-point venue"],
+                        ident)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     records = [dict(name="radius_count", route="cuda",
                     source=KERNELS["radius_count"][0],

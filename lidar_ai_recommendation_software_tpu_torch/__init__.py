@@ -26,6 +26,11 @@ sampling and the fused shared MLP with its max-pool as CUDA kernels
 (``fps``, ``sa_mlp_pool``), with dense ball grouping in PyTorch between
 them.
 
+The CPU oracle, ``oracle.reference``, is the reference's algorithms on
+NumPy and SciPy (scikit-learn's DBSCAN, KD-tree and scaler written out):
+the yardstick the card's path is held to and the CPU baseline it is
+measured against, on any host.
+
 State shared with the JAX package: the analytic pipeline has no learned
 parameters. What it shares is the frozen ``PipelineConfig``, copied field
 for field, and the bottleneck uniforms, drawn with the same

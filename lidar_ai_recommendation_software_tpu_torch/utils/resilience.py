@@ -133,7 +133,9 @@ def device_answers_in_subprocess(device: torch.device | str = "cuda",
 class FallbackPipeline:
     """Pipeline wrapper that degrades to the port's own pipeline on the
     CPU when the card is lost; the results are the card's
-    (``chip_smoke.py`` holds them equal).
+    (``chip_smoke.py`` holds them equal). Not to the CPU oracle
+    (``oracle/reference.py``), as the JAX package's wrapper does: the
+    oracle's result has no ``people``, which the pipeline's keeps.
 
     A failure on a card that still answers the probe is re-raised: a
     kernel that does not build or launch, reads an illegal address, or a

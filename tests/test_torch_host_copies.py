@@ -26,7 +26,7 @@ from port_helpers import imported_modules, port_cfg
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = "lidar_ai_recommendation_software_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sklearn",
              "lidar_ai_recommendation_software_tpu")
 NEURAL_MODULES = ("neural.py", "models/crowdnet.py", "models/train.py",
                   "ops/sampling.py", "ops/grouping.py", "ops/hashgrid.py",
@@ -39,6 +39,8 @@ HOST_MODULES = ("cli.py", "compat.py", "app.py", "desktop.py",
 # the sharded analytics and training over torch.distributed
 PARALLEL_MODULES = ("parallel/mesh.py", "parallel/spatial.py",
                     "parallel/cluster.py", "parallel/trainer.py")
+# the CPU oracle, on NumPy and SciPy (the card's machine has no sklearn)
+ORACLE_MODULES = ("oracle/reference.py",)
 
 
 @pytest.mark.parametrize("name", ["MONOLITH_CONFIG", "MODULAR_CONFIG"])
@@ -102,12 +104,13 @@ def test_recommendations_copy_equals_jax(request, source):
 
 def test_port_package_imports_nothing_of_jax():
     """Every module of the port, read with ``ast``: no import of the JAX
-    package, jax, jaxlib, flax, optax or orbax, at any depth (function
-    bodies too); the modules of the neural path, the front-ends and
-    ``parallel/`` are among them."""
+    package, jax, jaxlib, flax, optax, orbax or sklearn, at any depth
+    (function bodies too); the modules of the neural path, the
+    front-ends, ``parallel/`` and the oracle are among them."""
     files = sorted((REPO / PORT).rglob("*.py"))
     assert len(files) > 10
-    for rel in NEURAL_MODULES + HOST_MODULES + PARALLEL_MODULES:
+    for rel in (NEURAL_MODULES + HOST_MODULES + PARALLEL_MODULES
+                + ORACLE_MODULES):
         assert REPO / PORT / rel in files, rel
     for path in files:
         bad = [n for n in imported_modules(path)

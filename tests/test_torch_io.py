@@ -243,14 +243,35 @@ FORMATS = ("csv", "xyz", "txt", "npy", "npz", "ply_ascii", "ply_binary",
            "pcd_ascii", "pcd_binary", "pcd_lzf", "las")
 
 
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's parser built afresh into a directory of this
+    module's own. Its build writes ``<cache>/libloader_<hash>.so.tmp``, the
+    same name in every process, so test processes sharing the default
+    cache can race, and the loser parses with NumPy from then on; here
+    only this process builds there. The cache variable and the module's
+    ``_LIB``/``_TRIED`` are restored at teardown."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("LIDAR_TPU_NATIVE_CACHE",
+              str(tmp_path_factory.mktemp("jax_native")))
+    mp.setattr(jax_native, "_LIB", None)
+    mp.setattr(jax_native, "_TRIED", False)
+    yield
+    mp.undo()
+
+
 @pytest.mark.parametrize("parser", ["native", "numpy"])
 @pytest.mark.parametrize("fmt", FORMATS)
-def test_load_points_bit_equal_to_jax(tmp_path, monkeypatch, fmt, parser):
+def test_load_points_bit_equal_to_jax(tmp_path, monkeypatch, jax_native_lib,
+                                      fmt, parser):
     """``load_points`` of both packages on the same bytes, bit for bit,
-    with the native library and (its ``get_lib`` gone in both packages)
-    with the NumPy twins."""
+    with the native library (both packages' loaded: the JAX package's
+    NumPy twin rounds three text formats apart) and (its ``get_lib`` gone
+    in both packages) with the NumPy twins."""
     if parser == "native" and not native.available():
         pytest.skip("g++ toolchain unavailable")
+    if parser == "native":
+        assert jax_native.available(), "the JAX package's parser did not build"
     if parser == "numpy":
         monkeypatch.setattr(native, "get_lib", lambda: None)
         monkeypatch.setattr(jax_native, "get_lib", lambda: None)
