@@ -21,12 +21,13 @@ Run from the root of a checkout. It
      x row's run of the stream, a sparse x row between two rows of full
      columns, every column full, a cap of 512, labels pointing forward,
      dropped and masked points, an empty stream, N not a multiple of the
-     tile; the propagation, the count and border-min scan and the tail
-     ``dense_tail`` also captured in a CUDA graph, which a read back to
-     the host would break; ``dense_tail`` also on label arrays fed as
-     they are, and beside the first design's tail, ``table_gather`` and
-     the plain ranks, which it replaces on the path), ``fps`` single and
-     batched on each
+     tile, and the fill's own: every column at or past its cap, every
+     point masked, one point, runs of columns across the fill's tiles, a
+     cap of 512; the fill, the propagation, the count and border-min scan
+     and the tail ``dense_tail`` also captured in a CUDA graph, which a
+     read back to the host would break; ``dense_tail`` also on label
+     arrays fed as they are), ``table_fill`` also timed at the 10M
+     ``analyze``'s buffer, ``fps`` single and batched on each
      route of its launch plan (the cloud in registers, one block with the
      cloud in shared memory, a thread-block cluster, one block streaming
      from L2; bit-equal; masks, exact ties in one warp and across the
@@ -132,8 +133,6 @@ KERNELS = {
                      f"{JAX_PKG}/ops/pallas/kernels.py:76"),
     "table_fill": (f"{PORT}/csrc/column_table.cu",
                    f"{JAX_PKG}/ops/pallas/fill.py:177"),
-    "table_gather": (f"{PORT}/csrc/column_table.cu",
-                     f"{JAX_PKG}/ops/pallas/fill.py:280"),
     "dense_tail": (f"{PORT}/csrc/dense_tail.cu",
                    f"{JAX_PKG}/ops/pallas/fill.py:280"),
     "column_counts": (f"{PORT}/csrc/column_neighbours.cu",
@@ -151,10 +150,8 @@ KERNELS = {
     "sa_mlp_pool": (f"{PORT}/csrc/sa_mlp_pool.cu",
                     f"{JAX_PKG}/ops/pallas/kernels.py:166"),
 }
-COLUMN_KERNELS = tuple(KERNELS)[1:7]
-# the kernels every column-grid clustering launches: table_gather, the
-# clustering's first design of its tail, is off the path since dense_tail
-COLUMN_PATH = tuple(k for k in COLUMN_KERNELS if k != "table_gather")
+# the kernels every column-grid clustering launches
+COLUMN_KERNELS = tuple(KERNELS)[1:6]
 # H100 SXM published peaks: HBM bandwidth, FP32 outside the tensor cores,
 # bf16 in the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -315,7 +312,7 @@ def max_sweeps() -> int:
 def require_one_pass(launches: dict, what: str) -> None:
     """Every clustering of a run (one ``table_fill`` a clustering) made
     one ``column_counts``, one ``border_min`` and the tail's launches and
-    the propagation's constant number, and no ``table_gather``."""
+    the propagation's constant number."""
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
         columns as C)
     runs = launches["table_fill"]
@@ -327,25 +324,12 @@ def require_one_pass(launches: dict, what: str) -> None:
         require(launches[k] == runs, f"{what}: {launches[k]} {k} launches "
                 f"in {runs} clusterings, one each expected")
     tail = C.TAIL_LAUNCHES
-    require(launches["dense_tail"] == tail * runs and
-            launches["table_gather"] == 0,
-            f"{what}: {launches['dense_tail']} dense_tail and "
-            f"{launches['table_gather']} table_gather launches in {runs} "
-            f"clusterings, {tail} and 0 each expected")
+    require(launches["dense_tail"] == tail * runs,
+            f"{what}: {launches['dense_tail']} dense_tail launches in {runs} "
+            f"clusterings, {tail} each expected")
     require(launches["propagate"] == C.PROPAGATE_LAUNCHES * runs,
             f"{what}: {launches['propagate']} propagation launches in {runs} "
             f"clusterings, {C.PROPAGATE_LAUNCHES} each expected")
-
-
-def parent_tail(labels, point_stream):
-    """The clustering's tail as its first design ran it on the card: the
-    ``table_gather`` kernel, ``torch.where`` and the plain ranks
-    (``dense_ids``): the yardstick of ``dense_tail``."""
-    import torch
-    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
-        columns as C)
-    lab = C.table_gather(labels, point_stream, C.INT_MAX)
-    return C.dense_ids(torch.where(lab == C.INT_MAX, -1, lab))
 
 
 def phase(name: str) -> None:
@@ -696,6 +680,9 @@ def scan_case(name: str, venue):
     cap = Pipeline(device="cpu").fit_capacity(venue).capacity
     ng = venue[:, 2] > np.percentile(venue[:, 2], 30.0)
     n = cap.cluster_capacity
+    if len(venue) > n:
+        # a buffer smaller than the cloud holds its non-ground points
+        venue, ng = venue[ng], ng[ng]
     buf = np.zeros((n, 3), np.float32)
     buf[:len(venue)] = venue
     m = np.zeros(n, bool)
@@ -712,7 +699,7 @@ def column_cases():
     import numpy as np
     from lidar_ai_recommendation_software_tpu_torch import scaled_venue
     from lidar_ai_recommendation_software_tpu_torch.synthetic import (
-        column_occupancy_cases, dense_tail_cases)
+        column_occupancy_cases, dense_tail_cases, table_fill_cases)
 
     def padded(pts, n, mask=None):
         buf = np.zeros((n, 3), np.float32)
@@ -771,6 +758,7 @@ def column_cases():
 
     yield from column_occupancy_cases()
     yield from dense_tail_cases()
+    yield from table_fill_cases()
 
 
 def clustering_labels(dev, pts, mask, eps, min_samples, ncx, ncy,
@@ -794,9 +782,9 @@ def clustering_labels(dev, pts, mask, eps, min_samples, ncx, ncy,
 
 
 def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
-                      cap, timed: bool) -> dict:
-    """Every column kernel against its plain version on one case; with
-    ``timed``, their CUDA-event times and bounds too."""
+                      cap, timed: tuple = ()) -> dict:
+    """Every column kernel against its plain version on one case; the
+    CUDA-event and graph times and bounds of those named in ``timed``."""
     import torch
     from lidar_ai_recommendation_software_tpu_torch.ops import ccl
     from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
@@ -821,10 +809,20 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
 
     fill_args = (p, order, scid, cell_start, ncells, cap)
     tab, pst, ss, ov = C.table_fill(*fill_args)
-    for got, want in zip((tab.view(torch.int32), pst, ss, ov),
-                         C.table_fill_reference(*fill_args)):
-        same("table_fill", got, want.view(torch.int32)
-             if want.dtype == torch.float32 else want)
+    want_fill = [w.view(torch.int32) if w.dtype == torch.float32 else w
+                 for w in C.table_fill_reference(*fill_args)]
+    for got, want in zip((tab.view(torch.int32), pst, ss, ov), want_fill):
+        same("table_fill", got, want)
+    # no read of the device, no allocation by the kernel: a CUDA graph
+    # captures the fill, and a replay gives the same table and maps
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = C.table_fill(*fill_args)
+    graph.replay()
+    for got, want in zip((replayed[0].view(torch.int32), *replayed[1:]),
+                         want_fill):
+        same("table_fill", got, want)
+    del graph, replayed, want_fill
     placed = ss >= 0
     n_occ = int(placed.sum())
 
@@ -863,9 +861,7 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
         graph.replay()
         same(kernel, replayed, want)
     final = torch.where(core, lab, bmin)
-    got = C.table_gather(final, pst, C.INT_MAX)
-    same("table_gather", got, C.table_gather_reference(final, pst,
-                                                       C.INT_MAX))
+    got = C.table_gather_reference(final, pst, C.INT_MAX)
     n_clusters = int(torch.unique(got[got != C.INT_MAX]).numel())
     dense, n_dense = C.dense_tail(final, pst)
     want_dense, want_n = C.dense_tail_reference(final, pst)
@@ -896,7 +892,7 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
         require(int(ov) == 1, "one point past a full column is overflow")
     if name == "neighbours at exactly eps":
         # points 0, 1 are eps apart (y), 2, 3 too (z); 4, 5 just beyond
-        c = C.table_gather(counts, pst, -1)[:6].tolist()
+        c = C.table_gather_reference(counts, pst, -1)[:6].tolist()
         require(c == [2, 2, 2, 2, 1, 1], f"counts at eps: {c}")
     if name == "chain across the grid":
         require(n_clusters == 1, f"the chain is one cluster, got "
@@ -950,9 +946,6 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
     calls = {
         "table_fill": (lambda: C.table_fill(*fill_args),
                        lambda: C.table_fill_reference(*fill_args)),
-        "table_gather": (lambda: C.table_gather(final, pst, C.INT_MAX),
-                         lambda: C.table_gather_reference(final, pst,
-                                                          C.INT_MAX)),
         "dense_tail": (lambda: C.dense_tail(final, pst),
                        lambda: C.dense_tail_reference(final, pst)),
         "column_counts": (lambda: C.column_counts(*nb_args),
@@ -968,7 +961,8 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
                                           labels0.clone(), bound_sweeps)),
     }
     times = {}
-    for kernel, (fast, plain) in calls.items():
+    for kernel in timed:
+        fast, plain = calls[kernel]
         ms, dev_ms = cuda_ms(fast), graph_ms(fast)
         plain_ms = cuda_ms(plain, iters=5)
         b_ms, b_by = bound(*work[kernel])
@@ -982,21 +976,18 @@ def check_column_case(dev, name, pts, mask, eps, min_samples, ncx, ncy,
             times[kernel]["walked_bound_ms"] = w_ms
             print(f"{kernel} at the {name}: bound of a walk to each "
                   f"column's end marker {w_ms:.6f} ms ({w_by})")
-    # the tail's first design on the same labels, and the kernels one call
-    # of each design launches
-    parent_ms = graph_ms(lambda: parent_tail(final, pst))
-    times["dense_tail"]["parent_graph_ms"] = parent_ms
-    seen_parent = device_kernels(lambda: parent_tail(final, pst))
-    seen_tail = device_kernels(lambda: C.dense_tail(final, pst))
-    print(f"dense_tail at the {name}: the first design's tail (table_gather, "
-          f"where, dense_ids) {parent_ms:.6f} ms from a CUDA graph, "
-          f"{sum(seen_parent.values())} kernels a call; dense_tail "
-          f"{sum(seen_tail.values())}: {seen_tail}")
-    # the wrapper launches its kernels and nothing else
-    require(all("dense_tail" in k for k in seen_tail)
-            and sum(seen_tail.values()) == C.TAIL_LAUNCHES,
-            f"dense_tail launches {C.TAIL_LAUNCHES} kernels a call and "
-            f"nothing else, its captured graph holds {seen_tail}")
+    # each wrapper launches its kernels and nothing else (memsets left out)
+    for kernel, fn, want in (
+            ("table_fill", calls["table_fill"][0], 1),
+            ("dense_tail", calls["dense_tail"][0], C.TAIL_LAUNCHES)):
+        if kernel in timed:
+            seen = device_kernels(fn)
+            print(f"{kernel} at the {name}: {sum(seen.values())} kernels a "
+                  f"call: {seen}")
+            require(all(kernel in k for k in seen)
+                    and sum(seen.values()) == want,
+                    f"{kernel} launches {want} kernels a call and nothing "
+                    f"else, its captured graph holds {seen}")
     return {"errs": errs, "times": times}
 
 
@@ -1033,18 +1024,13 @@ def run_column_checks(dev) -> dict:
     times = {}
     scans = {name for _, name in COLUMN_SCANS} | {SEQUENCE_FRAME}
     for name, *args in column_cases():
-        res = check_column_case(dev, name, *args, timed=name in scans)
+        res = check_column_case(dev, name, *args,
+                                timed=COLUMN_KERNELS if name in scans else ())
         for k, e in res["errs"].items():
             errs[k] = max(errs[k], e)
         if "times" in res:
             times[name] = res["times"]
     errs["dense_tail"] = max(errs["dense_tail"], run_tail_label_checks(dev))
-    print("dense_tail, graph ms / the first design's tail's graph ms / bound "
-          "ms: " + "; ".join(
-              f"{name} {t['dense_tail']['graph_ms']:.6f} / "
-              f"{t['dense_tail']['parent_graph_ms']:.6f} / "
-              f"{t['dense_tail']['bound_ms']:.6f}"
-              for name, t in times.items()))
     for kernel in COLUMN_KERNELS:
         print(f"{kernel}, ms / graph ms / bound ms: " + "; ".join(
             f"{name} {t[kernel]['ms']:.6f} / {t[kernel]['graph_ms']:.6f} / "
@@ -2477,7 +2463,7 @@ def run_scan_3m(pipe, ident: str) -> tuple:
     require(cap.max_points > clustering.SEGSUM_MAX_POINTS,
             "the scan's buffer must exceed the centroid route's switch")
     out, launches = traced(lambda: pipe.analyze(scan), "3,000,000-point")
-    for k in COLUMN_PATH:
+    for k in COLUMN_KERNELS:
         require(launches[k] > 0, f"the 3M-point run did not launch {k}")
     require(launches["place_dense"] == 1, f"the 3M-point run launched "
             f"place_dense {launches['place_dense']} times, once expected")
@@ -2653,7 +2639,7 @@ def run_cli_scan(big, out_1m, launches_1m, totals, ident: str) -> None:
     want = {k: v for k, v in launches_1m.items() if v}
     require(used == want, f"the CLI's 1M run launched {used}, "
             f"Pipeline.analyze {want}")
-    require(all(launches[k] > 0 for k in COLUMN_PATH),
+    require(all(launches[k] > 0 for k in COLUMN_KERNELS),
             "the CLI's 1M run missed a column kernel")
     print(f"kernels of the CLI's 1M run equal those of Pipeline.analyze: "
           f"{used}")
@@ -3084,11 +3070,13 @@ def run_parallel(pipe, big, ident: str) -> tuple:
     del out, scan, calls, mask
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    # the fill alone timed there: its table is the largest of the path
     held(check_column_case(
         dev, "10M analyze's buffer", pts, valid, eps,
-        min_samples, kw["ncx"], kw["ncy"], kw["column_cap"], timed=False))
+        min_samples, kw["ncx"], kw["ncy"], kw["column_cap"],
+        timed=("table_fill",)))
     print(f"the column kernels at the 10M buffer against their plain "
-          f"versions: {time.perf_counter() - t0:.3f} s")
+          f"versions, table_fill timed: {time.perf_counter() - t0:.3f} s")
 
     cfg = pipe.fit_capacity(big)
     cloud = PointCloud.from_numpy(big, cfg.capacity.max_points,
@@ -3200,7 +3188,7 @@ def run_parallel(pipe, big, ident: str) -> tuple:
     tries = records[1]["sharded DBSCAN, 10M"]["launches"]["table_fill"]
     held(check_column_case(
         dev, "rank 1's table of the 10M scan", bufs[1], bvalid[1], eps,
-        min_samples, ncx, ncy, cap0 << (tries - 1), timed=False))
+        min_samples, ncx, ncy, cap0 << (tries - 1)))
     print(f"the column kernels at rank 1's table ({bufs.shape[1]:,} slots, "
           f"{ncx} x {ncy} columns, cap {cap0 << (tries - 1)} after {tries} "
           f"tries) against their plain versions: "
@@ -3357,7 +3345,7 @@ def run_oracle_baseline(pipe, fixture, ms_1m: float, ident: str) -> None:
           + f"; cpu_points_per_sec {cpu_pps:.1f} on {cpu}, beside {ident}")
     card, launches = traced(lambda: pipe.analyze(cloud),
                             f"{POINTS:,}-point")
-    for k in ("radius_count", *COLUMN_PATH):
+    for k in ("radius_count", *COLUMN_KERNELS):
         require(launches[k] > 0, f"the {POINTS:,}-point run did not "
                 f"launch {k}")
     g, og = card["density"]["density_grid"], density["density_grid"]
@@ -3440,7 +3428,7 @@ def main() -> int:
     for n, ref, kernels_used in (
             (40_960, JAX_REFERENCE_40960, ("radius_count",)),
             (262_144, JAX_REFERENCE_262144,
-             ("radius_count", *COLUMN_PATH))):
+             ("radius_count", *COLUMN_KERNELS))):
         phase(f"{n:,}-point venue, card vs the port on the CPU")
         t0 = time.perf_counter()
         venues[n] = scaled_venue(n)
@@ -3464,7 +3452,7 @@ def main() -> int:
     venues[1_000_000] = big = scaled_venue(1_000_000)
     out, launches_1m = traced(lambda: pipe.analyze(big),
                               "1,000,000-point")
-    for k in COLUMN_PATH:
+    for k in COLUMN_KERNELS:
         require(launches_1m[k] > 0, f"the 1M-point run did not launch {k}")
     require_one_pass(launches_1m, "the 1M-point run")
     check_jax_reference(out, JAX_REFERENCE_1M, "card, 1,000,000 points")

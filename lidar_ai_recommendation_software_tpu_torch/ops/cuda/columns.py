@@ -9,8 +9,8 @@ ranking of the clusters after ``extract_stream``). The kernels are
 ``csrc/dense_tail.cu``; ``ops/ccl.py`` composes them into ``dbscan_gs``:
 ``table_fill``, ``column_counts``, ``propagate``, ``border_min``, then
 ``dense_tail`` (the gather back to point order and the dense ids, one
-kernel source in two launches). ``table_gather``, the gather alone, is
-the clustering's first design of that step and stays as its yardstick.
+kernel source in two launches). ``table_gather_reference``, the gather
+alone in plain PyTorch, is the first step of the tail's plain version.
 
 The stream: the points sorted stably by column id (``order`` (N,), the
 point at each stream position; ``scid``, its column id, ``ncells`` for a
@@ -48,7 +48,7 @@ import torch
 
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
     LAUNCHES, PAIRS_PER_CHUNK, SMEM_PER_BLOCK, _check, _cuda_device,
-    _raise_on, _stream, load_library)
+    _raise_on, _sm_count, _stream, load_library)
 
 EMPTY_COORD = 1.0e18   # (1e18)^2 is finite in float32 and always > r^2
 INT_MAX = 2 ** 31 - 1
@@ -100,6 +100,65 @@ def table_fill_reference(points: torch.Tensor, order: torch.Tensor,
     return table, point_stream, stream_slot, overflow
 
 
+# The layout of the fill in csrc/column_table.cu, whose entry point derives
+# the same plan from the shapes (and refuses a cap whose tile cannot fit
+# shared memory). A block keeps beside its two tiles tile_cols + 1 column
+# starts and a word a warp.
+FILL_THREADS = 256
+FILL_WARPS = FILL_THREADS // 32
+FILL_TILE_SLOTS = 2048       # the most slots a tile of whole columns holds
+FILL_BLOCKS_PER_SM = 3       # the persistent grid: blocks an SM
+# streams longer than this scatter point_stream in a second walk over
+# their tiles, after the table's stores (their points and point_stream do
+# not stay in L2 beside them); shorter ones with each tile
+FILL_SCATTER_INLINE_MAX = 2 ** 21
+
+
+@dataclasses.dataclass(frozen=True)
+class FillPlan:
+    """How the fill covers ``ncells`` columns of ``cap`` slots and ``n``
+    stream positions: tile t takes columns [t * tile_cols, (t + 1) *
+    tile_cols) (fewer in the last tile), their slots and their stream
+    positions [cell_start[c0], cell_start[c1]), and the masked positions
+    in [t * masked_chunk, (t + 1) * masked_chunk) from cell_start[ncells]
+    on; block b takes tiles b, b + blocks, ..., with two tile buffers and
+    the words in ``smem_bytes`` of shared memory; ``scatter_after``:
+    point_stream is written in a second walk over the block's tiles, not
+    with each tile."""
+
+    tile_cols: int
+    tiles: int
+    masked_chunk: int
+    blocks: int
+    smem_bytes: int
+    scatter_after: bool
+
+
+def fill_plan(ncells: int, cap: int, n: int, sms: int) -> FillPlan:
+    """The fill's launch plan as the kernel's entry point derives it, from
+    the shapes alone, on a card of ``sms`` multiprocessors: tiles of
+    max(1, min(FILL_THREADS - 1, FILL_TILE_SLOTS // cap)) whole columns
+    (a thread for each column start), the masked tail cut evenly among
+    them, a persistent grid of at most FILL_BLOCKS_PER_SM blocks an SM,
+    point_stream scattered after the tiles above FILL_SCATTER_INLINE_MAX
+    stream positions. Raises ValueError where one column's two tile
+    buffers cannot fit a block's shared memory, or past the int32 slot
+    index."""
+    if ncells * cap >= 2 ** 31:
+        raise ValueError(f"{ncells} columns x {cap} slots is past the int32 "
+                         f"slot index")
+    tile_cols = max(1, min(FILL_THREADS - 1, FILL_TILE_SLOTS // cap))
+    smem = 2 * tile_cols * cap * 16 + 4 * (tile_cols + 1 + FILL_WARPS)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"a column cap of {cap} needs {smem} bytes of shared memory for "
+            f"two tiles, past the {SMEM_PER_BLOCK} a block may use")
+    tiles = -(-ncells // tile_cols)
+    return FillPlan(tile_cols, tiles, -(-n // tiles),
+                    min(tiles, sms * FILL_BLOCKS_PER_SM), smem,
+                    n > FILL_SCATTER_INLINE_MAX)
+
+
 def table_fill(points: torch.Tensor, order: torch.Tensor,
                scid: torch.Tensor, cell_start: torch.Tensor, ncells: int,
                cap: int
@@ -111,7 +170,10 @@ def table_fill(points: torch.Tensor, order: torch.Tensor,
     cell_start (ncells + 1,) int32, the stream. Returns (table
     (ncells * cap, 4) float32, point_stream (N,) int32, stream_slot (N,)
     int32, overflow () int32 = valid points at rank >= cap, which are not
-    placed). The kernel writes every slot, empty ones included."""
+    placed). The kernel writes every slot, empty ones included, by
+    ``fill_plan``; it takes each column's stream range and the masked
+    tail from ``cell_start`` and does not read ``scid``, whose shape the
+    wrapper still checks."""
     if points.device.type == "cpu":
         return table_fill_reference(points, order, scid, cell_start, ncells,
                                     cap)
@@ -121,15 +183,16 @@ def table_fill(points: torch.Tensor, order: torch.Tensor,
     for name, t in (("order", order), ("scid", scid)):
         _check(name, t, torch.int32, (n,), dev)
     _check("cell_start", cell_start, torch.int32, (ncells + 1,), dev)
+    plan = fill_plan(ncells, cap, n, _sm_count(dev))
     fn = load_library().table_fill_launch
     with torch.cuda.device(dev):
         table = torch.empty((ncells * cap, 4), dtype=torch.float32,
                             device=dev)
         point_stream = torch.empty(n, dtype=torch.int32, device=dev)
         stream_slot = torch.empty(n, dtype=torch.int32, device=dev)
-        overflow = torch.zeros((), dtype=torch.int32, device=dev)
-        err = fn(points.data_ptr(), order.data_ptr(), scid.data_ptr(),
-                 cell_start.data_ptr(), n, ncells, cap, table.data_ptr(),
+        overflow = torch.empty((), dtype=torch.int32, device=dev)
+        err = fn(points.data_ptr(), order.data_ptr(), cell_start.data_ptr(),
+                 n, ncells, cap, plan.blocks, table.data_ptr(),
                  point_stream.data_ptr(), stream_slot.data_ptr(),
                  overflow.data_ptr(), _stream(dev))
         LAUNCHES["table_fill"] += 1
@@ -138,35 +201,17 @@ def table_fill(points: torch.Tensor, order: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# table_gather: stream-order values -> point order
+# table_gather_reference: stream-order values -> point order
 # ---------------------------------------------------------------------------
 
 def table_gather_reference(values: torch.Tensor, point_stream: torch.Tensor,
                            fill: int) -> torch.Tensor:
-    """Plain version of ``table_gather``."""
-    got = values[point_stream.clamp_min(0).to(torch.int64)]
-    return torch.where(point_stream >= 0, got, fill).to(torch.int32)
-
-
-def table_gather(values: torch.Tensor, point_stream: torch.Tensor,
-                 fill: int) -> torch.Tensor:
     """Read the table's per-point values, (N,) int32 in stream order, back
     into point order: (N,) int32, ``fill`` for points with no slot
-    (masked or dropped)."""
-    if values.device.type == "cpu":
-        return table_gather_reference(values, point_stream, fill)
-    dev = _cuda_device(values, "table_gather")
-    n = point_stream.shape[0]
-    _check("values", values, torch.int32, (n,), dev)
-    _check("point_stream", point_stream, torch.int32, (n,), dev)
-    fn = load_library().table_gather_launch
-    with torch.cuda.device(dev):
-        out = torch.empty(n, dtype=torch.int32, device=dev)
-        err = fn(values.data_ptr(), point_stream.data_ptr(), n, int(fill),
-                 out.data_ptr(), _stream(dev))
-        LAUNCHES["table_gather"] += 1
-    _raise_on(err, "table_gather")
-    return out
+    (masked or dropped). Plain PyTorch: the first step of the tail's plain
+    version; on the card ``dense_tail`` does it in its first launch."""
+    got = values[point_stream.clamp_min(0).to(torch.int64)]
+    return torch.where(point_stream >= 0, got, fill).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

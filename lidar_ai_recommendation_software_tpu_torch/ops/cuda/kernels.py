@@ -42,10 +42,10 @@ BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
-LAUNCHES = {"radius_count": 0, "table_fill": 0, "table_gather": 0,
-            "dense_tail": 0, "column_counts": 0, "border_min": 0,
-            "propagate": 0, "place_dense": 0, "fps_single": 0,
-            "fps_batched": 0, "sa_mlp_pool": 0}
+LAUNCHES = {"radius_count": 0, "table_fill": 0, "dense_tail": 0,
+            "column_counts": 0, "border_min": 0, "propagate": 0,
+            "place_dense": 0, "fps_single": 0, "fps_batched": 0,
+            "sa_mlp_pool": 0}
 # fps launches by the route of its launch plan (ops/cuda/pointnet.py)
 FPS_ROUTES = {"registers": 0, "block": 0, "cluster": 0, "stream": 0}
 
@@ -54,8 +54,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # as c_void_p: a bare Python int would be cut to 32 bits)
 _SIGNATURES = {
     "radius_count_launch": [_P, _P, _P, _F] + [_I] * 5 + [_P, _P],
-    "table_fill_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    "table_gather_launch": [_P, _P, _I, _I, _P, _P],
+    "table_fill_launch": [_P, _P, _P] + [_I] * 4 + [_P] * 5,
     "dense_tail_launch": [_P, _P] + [_I] * 3 + [_P, _P, _P, _P],
     "column_counts_launch": [_P, _P] + [_I] * 4 + [_F, _P, _P, _P],
     "border_min_launch": [_P, _P] + [_I] * 4 + [_F, _P, _P, _P],
@@ -173,6 +172,12 @@ def _raise_on(err: int, name: str) -> None:
 
 def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    """The card's multiprocessors, for the persistent grids."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _cuda_device(t: torch.Tensor, name: str) -> torch.device:

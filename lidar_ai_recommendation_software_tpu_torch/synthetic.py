@@ -185,6 +185,45 @@ def column_occupancy_cases():
             case("a cap of 512", deep, 16_384, 5, 512, 5)]
 
 
+def table_fill_cases():
+    """Clouds whose column occupancies stress the column table's fill
+    (``ops/cuda/columns.py::table_fill``, tiles of whole columns by
+    ``fill_plan``), at eps = 0.3 m: a list of (name, points (N, 3)
+    float32, mask (N,), eps, min_samples, ncx, ncy, column cap), masked
+    points after the cloud up to its buffer size."""
+
+    def case(name, counts, buffer, cap, seed, masked=False):
+        pts = lattice_points(counts, 0.3, seed)
+        buf = np.zeros((buffer, 3), np.float32)
+        buf[:len(pts)] = pts
+        mask = np.arange(buffer) < len(pts)
+        return (name, buf, mask & (not masked), 0.3, 5, *counts.shape, cap)
+
+    rng = np.random.RandomState(14)
+    # every column at its cap of 8 (the origin's point completes column
+    # (0, 0)), 25 x 39 padded columns: tiles end inside the x rows
+    full = np.full((23, 37), 8, np.int64)
+    full[0, 0] = 7
+    # every column 3 past its cap of 4
+    past = np.full((30, 30), 7, np.int64)
+    past[0, 0] = 6
+    # three x rows of 300 columns, each column 1 to 2 past the cap of 16
+    # points, so the runs of occupied columns cross every tile boundary
+    runs = rng.randint(1, 19, (3, 300))
+    # a cap of 512: a few columns full, one past it, the others at random
+    deep = rng.randint(0, 600, (5, 5))
+    deep[1, 1] = deep[3, 2] = 512
+    deep[2, 4] = 513
+    return [case("every column at its cap", full, 8192, 8, 1),
+            case("every column past its cap", past, 8192, 4, 2),
+            case("every point masked", rng.randint(0, 5, (16, 16)), 2048,
+                 8, 3, masked=True),
+            case("one point", np.zeros((4, 4), np.int64), 1, 16, 4),
+            case("runs of columns across the fill's tiles", runs, 20_000,
+                 16, 5),
+            case("a fill cap of 512", deep, 10_000, 512, 6)]
+
+
 def _place_case(name, run_lengths, valid_at, nch, k, seed):
     """A ``place_dense`` stream of runs of equal ids: run r has
     ``run_lengths[r]`` rows of id r, and its valid row, if any, at

@@ -184,14 +184,14 @@ def column_kernel_work(points: float, slots: float, occupied: float,
     the labels the propagation changes."""
     n = points
     return {
-        # table written whole; order, cell ids read, the placed points'
-        # xyz, the column starts; stream slot and position written
-        "table_fill": (16 * slots + 8 * n + 12 * occupied
+        # table written whole; order read, the placed points' xyz, the
+        # column starts (which give each column's stream range and the
+        # masked tail: no cell ids); stream slot and position written
+        "table_fill": (16 * slots + 4 * n + 12 * occupied
                        + 4 * (columns + 1) + 8 * n, 0.0),
-        # stream positions read, the placed points' values, out written
-        "table_gather": (4 * n + 4 * occupied + 4 * n, 0.0),
-        # the same, and the cluster count (the ranks need no bytes of
-        # their own from DRAM: a design can keep them on chip)
+        # stream positions read, the placed points' values, out written,
+        # and the cluster count (the ranks need no bytes of their own
+        # from DRAM: a design can keep them on chip)
         "dense_tail": (4 * n + 4 * occupied + 4 * n + 4, 0.0),
         # the occupied slots (each column's occupancy from its start, so
         # no end marker and no stream slot), the column starts, out

@@ -1,9 +1,10 @@
-"""The launch plan of the port's column scan (``column_counts`` and
-``border_min``, ``ops/cuda/columns.py::neighbour_plan``): which block
-takes which columns, what it stages and how much shared memory that needs.
-The plan is plain Python, so it is held here on the CPU; the kernels it
-launches are held against their plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""The launch plans of the port's column scan (``column_counts`` and
+``border_min``, ``ops/cuda/columns.py::neighbour_plan``) and of the column
+table's fill (``fill_plan``): which block takes which columns (and, for
+the fill, which stream positions), what it stages and how much shared
+memory that needs. The plans are plain Python, so they are held here on
+the CPU; the kernels they launch are held against their plain versions on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 
 The scan's split of a block's tile into sub-tiles depends on the data, so
 ``_subtiles`` below walks it as the kernel does, from ``cell_start``
@@ -24,7 +25,7 @@ from lidar_ai_recommendation_software_tpu_torch.ops import ccl
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import columns as C
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
-    lattice_points)
+    lattice_points, table_fill_cases)
 from port_helpers import imported_modules
 
 T = C.NEIGHBOUR_TILE_COLS
@@ -260,5 +261,206 @@ def test_scan_stage_variants_find_their_anchors():
         assert whole == (not name.startswith("stage ")
                          or name == "stage full"), name
     names = imported_modules(repo / "tools" / "scan_stages.py")
+    assert not [n for n in names if n.split(".")[0] in (
+        "jax", "jaxlib", "flax", "lidar_ai_recommendation_software_tpu")]
+
+
+# ---------------------------------------------------------------------------
+# the fill's plan (``columns.fill_plan``, ``csrc/column_table.cu``)
+# ---------------------------------------------------------------------------
+
+# name -> (ncx, ncy, cap, stream positions, valid points): the clustering
+# buffers of the 262,144-, 1M- and 3M-point scans, the temporal sequence's
+# frame and the 10M scan (PERF.md section 4), then edge shapes
+FILL_SHAPES = {
+    "262,144-point scan": (544, 544, 16, 262_144, 183_501),
+    "1M scan": (1024, 1024, 16, 1_048_576, 700_000),
+    "3M scan": (1280, 1280, 16, 3_145_728, 2_100_000),
+    "sequence frame": (320, 320, 56, 114_688, 70_000),
+    "10M buffer": (1280, 1280, 24, 8_388_608, 6_989_636),
+    "cap of 512": (6, 6, 512, 16_384, 10_000),
+    "columns not a multiple of a tile": (7, 300, 64, 4_096, 3_000),
+    "empty stream": (32, 32, 16, 0, 0),
+    "every point masked": (32, 32, 16, 4_096, 0),
+}
+# an H100 SXM's multiprocessors and the shared memory of one of them
+H100_SMS = 132
+SMEM_PER_SM = 233_472
+
+
+def _made_up_cell_start(ncx, ncy, valid, seed):
+    """cell_start of a stream of ``valid`` points spread at random over
+    the interior columns (some past any cap), the masked points after."""
+    rng = np.random.RandomState(seed)
+    occupancy = np.zeros((ncx + 2, ncy + 2), np.int64)
+    occupancy[1:-1, 1:-1] = rng.multinomial(
+        valid, np.full(ncx * ncy, 1.0 / (ncx * ncy))).reshape(ncx, ncy)
+    return _cell_start(occupancy)
+
+
+@pytest.mark.parametrize("name", sorted(FILL_SHAPES))
+def test_fill_tiles_cover_every_column_and_stream_position_once(name):
+    """The fill's tiles take every column once and, through the columns'
+    starts and the masked chunks, every stream position once; the blocks'
+    walks take every tile once; a tile's column starts have a thread
+    each; the large streams scatter point_stream after their tiles; two tile buffers fit a block's shared memory, and the
+    persistent grid's blocks fit an SM together."""
+    ncx, ncy, cap, n, valid = FILL_SHAPES[name]
+    ncells = (ncx + 2) * (ncy + 2)
+    plan = C.fill_plan(ncells, cap, n, H100_SMS)
+    cs = _made_up_cell_start(ncx, ncy, valid, len(name))
+    assert cs[-1] == valid
+    assert plan.tile_cols == max(1, min(C.FILL_THREADS - 1,
+                                        C.FILL_TILE_SLOTS // cap))
+    assert plan.smem_bytes == (2 * plan.tile_cols * cap * 16
+                               + 4 * (plan.tile_cols + 1 + C.FILL_WARPS))
+    assert plan.smem_bytes <= kernels.SMEM_PER_BLOCK
+    assert C.FILL_BLOCKS_PER_SM * (plan.smem_bytes + 1024) <= SMEM_PER_SM
+    c0 = np.arange(plan.tiles) * plan.tile_cols
+    c1 = np.minimum(c0 + plan.tile_cols, ncells)
+    assert (c1 > c0).all() and c0[0] == 0 and c1[-1] == ncells
+    assert (c1[:-1] == c0[1:]).all()
+    assert ((c1 - c0) * cap <= max(C.FILL_TILE_SLOTS, cap)).all()
+    assert plan.tile_cols + 1 <= C.FILL_THREADS
+    # the columns' stream ranges, then the masked chunks, in tile order
+    lo, hi = cs[c0], cs[c1]
+    assert lo[0] == 0 and hi[-1] == valid and (hi[:-1] == lo[1:]).all()
+    m0 = np.arange(plan.tiles, dtype=np.int64) * plan.masked_chunk
+    m_lo, m_hi = np.maximum(m0, valid), np.minimum(m0 + plan.masked_chunk, n)
+    assert np.clip(m_hi - m_lo, 0, None).sum() == n - valid
+    assert plan.masked_chunk * plan.tiles >= n
+    walked = np.concatenate([np.arange(b, plan.tiles, plan.blocks)
+                             for b in range(plan.blocks)])
+    assert np.array_equal(np.sort(walked), np.arange(plan.tiles))
+    assert plan.scatter_after == (n > C.FILL_SCATTER_INLINE_MAX) == (
+        name in ("3M scan", "10M buffer"))
+    assert plan.blocks == min(plan.tiles, H100_SMS * C.FILL_BLOCKS_PER_SM)
+    if name == "columns not a multiple of a tile":
+        assert ncells % plan.tile_cols and (ncells * cap) % (
+            plan.tile_cols * cap)
+
+
+def _fill_by_plan(pts, order, cell_start, ncells, cap, plan):
+    """The fill as the kernel computes it, tile by tile, from the plan,
+    ``cell_start`` and ``order`` alone (no cell ids): a stream position's
+    column is the last of the tile's columns that starts at or before it.
+    Returns its four outputs and how often each slot and each stream
+    position was written."""
+    n = len(order)
+    table = np.zeros((ncells * cap, 4), np.float32)
+    point_stream = np.zeros(n, np.int32)
+    stream_slot = np.zeros(n, np.int32)
+    slot_writes, stream_writes = np.zeros(ncells * cap, np.int64), \
+        np.zeros(n, np.int64)
+    overflow = 0
+    for t in range(plan.tiles):
+        c0 = t * plan.tile_cols
+        ncols = min(plan.tile_cols, ncells - c0)
+        cs = cell_start[c0:c0 + ncols + 1]
+        tile = np.full((ncols * cap, 4), C.EMPTY_COORD, np.float32)
+        tile.view(np.int32)[:, 3] = -1
+        k = np.arange(cs[0], cs[-1])
+        col = np.searchsorted(cs[:-1], k, side="right") - 1
+        r = k - cs[col]
+        placed = r < cap
+        slot = col * cap + r
+        tile[slot[placed], :3] = pts[order[k[placed]]]
+        tile.view(np.int32)[slot[placed], 3] = k[placed]
+        stream_slot[k] = np.where(placed, c0 * cap + slot, -1)
+        point_stream[order[k]] = np.where(placed, k, -1)
+        overflow += int((~placed).sum())
+        m0 = t * plan.masked_chunk
+        masked = np.arange(max(m0, cell_start[ncells]),
+                           min(m0 + plan.masked_chunk, n))
+        stream_slot[masked] = -1
+        point_stream[order[masked]] = -1
+        stream_writes[k] += 1
+        stream_writes[masked] += 1
+        table[c0 * cap:(c0 + ncols) * cap] = tile
+        slot_writes[c0 * cap:(c0 + ncols) * cap] += 1
+    return (table, point_stream, stream_slot, overflow), slot_writes, \
+        stream_writes
+
+
+FILL_CASES = {case[0]: case[1:] for case in table_fill_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(FILL_CASES))
+def test_fill_by_plan_equals_the_plain_version(name):
+    """On the fill's edge clouds (every column at or past its cap, every
+    point masked, one point, runs of columns across tiles, a cap of 512),
+    the kernel's arithmetic by ``fill_plan``, emulated in numpy, writes
+    every slot and every stream position once and gives
+    ``table_fill_reference``'s four outputs bit for bit."""
+    pts, mask, eps, _, ncx, ncy, cap = FILL_CASES[name]
+    p, m = torch.from_numpy(pts), torch.from_numpy(mask)
+    order, scid, cell_start = ccl.sorted_stream(p, m, eps, ncx, ncy)
+    ncells = (ncx + 2) * (ncy + 2)
+    want = C.table_fill_reference(p, order, scid, cell_start, ncells, cap)
+    plan = C.fill_plan(ncells, cap, len(pts), H100_SMS)
+    got, slot_writes, stream_writes = _fill_by_plan(
+        pts, order.numpy(), cell_start.numpy().astype(np.int64), ncells,
+        cap, plan)
+    assert (slot_writes == 1).all() and (stream_writes == 1).all()
+    np.testing.assert_array_equal(got[0].view(np.int32),
+                                  want[0].numpy().view(np.int32))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert (int(want[3]) > 0) == ("past" in name or "512" in name
+                                  or "runs" in name)
+
+
+def test_fill_plan_refuses_what_the_kernel_refuses():
+    """A cap whose one-column tile cannot be double-buffered in a block's
+    shared memory, and a table past the int32 slot index (the pipeline's
+    caps stop at 512; ``build_table`` refuses the slot count first)."""
+    C.fill_plan(9, 7262, 10, H100_SMS)
+    with pytest.raises(ValueError, match="shared memory"):
+        C.fill_plan(9, 7263, 10, H100_SMS)
+    with pytest.raises(ValueError, match="int32"):
+        C.fill_plan(2 ** 27, 16, 10, H100_SMS)
+
+
+def test_fill_plan_constants_are_the_kernel_sources():
+    """The layout ``fill_plan`` mirrors is the one ``csrc/column_table.cu``
+    declares and derives in its entry point."""
+    src = (Path(kernels.CSRC_DIR) / "column_table.cu").read_text()
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+
+    assert int(const("kThreads")) == C.FILL_THREADS
+    assert int(const("kTileSlots")) == C.FILL_TILE_SLOTS
+    assert int(const("kBlocksPerSm")) == C.FILL_BLOCKS_PER_SM
+    assert const("kScatterInlineMax") == "1 << 21"
+    assert 1 << 21 == C.FILL_SCATTER_INLINE_MAX
+    assert "const bool after = n > kScatterInlineMax;" in src
+    assert const("kWarps") == "kThreads / 32"
+    assert C.FILL_WARPS == C.FILL_THREADS // 32
+    assert int(const("kSmemPerBlock")) == kernels.SMEM_PER_BLOCK
+    assert ("const int tile_cols = max(1, min(kThreads - 1, kTileSlots / "
+            "cap));") in src
+    assert "sizeof(int32_t) * (tile_cols + 1 + kWarps);" in src
+    assert [f.name for f in dataclasses.fields(C.FillPlan)] == [
+        "tile_cols", "tiles", "masked_chunk", "blocks", "smem_bytes",
+        "scatter_after"]
+
+
+def test_fill_stage_variants_find_their_anchors():
+    """``tools/fill_stages.py`` cuts the fill's source in text: every
+    anchor is in today's source once, each variant differs from it, and
+    the tool imports nothing of the JAX package."""
+    repo = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "fill_stages", repo / "tools" / "fill_stages.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (Path(kernels.CSRC_DIR) / "column_table.cu").read_text()
+    variants = tool._variants(src)
+    assert set(variants) == set(tool._VARIANTS)
+    for name, (text, tile_slots, per_sm, whole) in variants.items():
+        assert (text == src) == (name == tool.SHIPPED), name
+        assert whole == (name in tool._WHOLE), name
+    names = imported_modules(repo / "tools" / "fill_stages.py")
     assert not [n for n in names if n.split(".")[0] in (
         "jax", "jaxlib", "flax", "lidar_ai_recommendation_software_tpu")]

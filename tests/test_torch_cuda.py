@@ -38,7 +38,7 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
     column_occupancy_cases, dense_tail_cases, dense_tail_label_cases,
-    place_dense_cases, sa_mlp_pool_cases)
+    place_dense_cases, sa_mlp_pool_cases, table_fill_cases)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -140,6 +140,10 @@ COLUMN_CASES.update({case[0].replace(" ", "_"): lambda case=case: case[1:]
 # masked points, an empty stream, N not a multiple of the tile
 COLUMN_CASES.update({case[0].replace(" ", "_"): lambda case=case: case[1:]
                      for case in dense_tail_cases()})
+# the clouds that stress the fill: every column at or past its cap, every
+# point masked, one point, runs across the fill's tiles, a cap of 512
+COLUMN_CASES.update({case[0].replace(" ", "_"): lambda case=case: case[1:]
+                     for case in table_fill_cases()})
 
 
 @pytest.mark.parametrize("name", sorted(COLUMN_CASES))
@@ -167,8 +171,6 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     assert torch.equal(lab, lab_ref)
     bmin = C.border_min(*nb, lab)
     assert torch.equal(bmin, C.border_min_reference(*nb, lab))
-    got = C.table_gather(bmin, pst, -1)
-    assert torch.equal(got, C.table_gather_reference(bmin, pst, -1))
     final = torch.where(core, lab, bmin)
     dense, n_clusters = C.dense_tail(final, pst)
     want_dense, want_n = C.dense_tail_reference(final, pst)
@@ -176,11 +178,13 @@ def test_column_kernels_match_plain_versions(cuda_device, name):
     torch.cuda.synchronize()
     # one union-find pass: the same launches in every clustering
     assert kernels.LAUNCHES["propagate"] == launched == C.PROPAGATE_LAUNCHES
-    for k in ("table_fill", "column_counts", "border_min", "table_gather"):
+    for k in ("table_fill", "column_counts", "border_min"):
         assert kernels.LAUNCHES[k] == 1, k
     assert kernels.LAUNCHES["dense_tail"] == C.TAIL_LAUNCHES
-    assert (int(ov) > 0) == (name in ("column_overflow",
-                                      "dropped_and_masked_points"))
+    assert (int(ov) > 0) == (name in (
+        "column_overflow", "dropped_and_masked_points",
+        "every_column_past_its_cap",
+        "runs_of_columns_across_the_fill's_tiles", "a_fill_cap_of_512"))
     if name == "every_column_full":
         occ = torch.bincount(ss.long() // cap, minlength=ncells)
         assert int((occ == cap).sum()) == ncx * ncy
@@ -196,7 +200,10 @@ def test_venue_scale_card_matches_cpu(cuda_device):
     for k in ("table_fill", "dense_tail", "column_counts", "border_min",
               "propagate", "radius_count"):
         assert kernels.LAUNCHES[k] > 0, k
-    assert kernels.LAUNCHES["table_gather"] == 0
+    assert set(kernels.LAUNCHES) == {
+        "radius_count", "table_fill", "dense_tail", "column_counts",
+        "border_min", "propagate", "place_dense", "fps_single",
+        "fps_batched", "sa_mlp_pool"}
     cpu = Pipeline(device="cpu").analyze(pts)
     np.testing.assert_array_equal(card["processed"].labels.cpu().numpy(),
                                   cpu["processed"].labels.numpy())
@@ -204,6 +211,35 @@ def test_venue_scale_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(card["density"]["density_grid"],
                                   cpu["density"]["density_grid"])
     assert card["flow"]["bottlenecks"] == cpu["flow"]["bottlenecks"]
+
+
+@pytest.mark.parametrize("name", [c[0] for c in table_fill_cases()])
+def test_table_fill_matches_plain_version(cuda_device, name):
+    """The fill's edge clouds (every column at or past its cap, every
+    point masked, one point, runs of columns across the fill's tiles, a
+    cap of 512): all four outputs bit-equal to the plain version, one
+    launch, and a capture in a CUDA graph whose replay gives the same."""
+    pts, mask, eps, _, ncx, ncy, cap = {
+        c[0]: c[1:] for c in table_fill_cases()}[name]
+    p = torch.from_numpy(pts).to(cuda_device)
+    m = torch.from_numpy(mask).to(cuda_device)
+    order, scid, cell_start = ccl.sorted_stream(p, m, eps, ncx, ncy)
+    args = (p, order, scid, cell_start, (ncx + 2) * (ncy + 2), cap)
+    want = C.table_fill_reference(*args)
+    kernels.reset_launch_counts()
+    got = C.table_fill(*args)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        again = C.table_fill(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["table_fill"] == 2
+    for out in (got, again):
+        assert torch.equal(out[0].view(torch.int32), want[0].view(torch.int32))
+        for g, w in zip(out[1:], want[1:]):
+            assert torch.equal(g, w)
+    assert (int(want[3]) > 0) == ("past" in name or "512" in name
+                                  or "runs" in name)
 
 
 @pytest.mark.parametrize("name", [c[0] for c in dense_tail_label_cases()])

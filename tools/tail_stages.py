@@ -7,20 +7,14 @@ stream-order labels to dense cluster ids in point order.
 It prints the card's name and power limit. Then, on the clustering inputs
 of ``chip_smoke.py``'s 262,144-, 1M- and 3M-point scans and of the first
 frame of its 100,000-point temporal sequence (labels from the card's own
-column kernels), for each of
-
-  - ``table_gather`` alone (the gather kernel of the first design),
-  - the first design's whole tail: ``table_gather``, ``torch.where`` and
-    the plain ranks (``dense_ids``), as ``ops/ccl.py`` ran it,
-  - ``dense_tail`` as the port launches it (two launches, one a phase),
-
-the time replayed from a CUDA graph (``chip_smoke.graph_ms``), the time
-with CUDA events over direct calls (``chip_smoke.cuda_ms``, which includes
-the host's cost of a call) and the kernels one call launches, read from
-a CUDA graph that captured it (``chip_smoke.device_kernels``, memsets left
-out); and
-the tail's bound: point_stream and the result once each and a label per
-placed point, at 3.35 TB/s. ``dense_tail`` is held bit-equal to the plain
+column kernels), ``dense_tail`` as the port launches it (two launches,
+one a phase): the time replayed from a CUDA graph
+(``chip_smoke.graph_ms``), the time with CUDA events over direct calls
+(``chip_smoke.cuda_ms``, which includes the host's cost of a call) and the
+kernels one call launches, read from a CUDA graph that captured it
+(``chip_smoke.device_kernels``, memsets left out); and the tail's
+bound: point_stream and the result once each and a label per placed
+point, at 3.35 TB/s. ``dense_tail`` is held bit-equal to the plain
 tail before it is timed. Then, timed from a CUDA graph and held bit-equal
 too: ``dense_tail`` under other launch plans than
 ``columns.dense_tail_plan``'s (a block a word of 32 points up to 1,024
@@ -114,15 +108,10 @@ def main() -> int:
                       and torch.equal(n_clusters, want_n),
                       f"{what} differs from the plain tail: {name}")
 
-        variants = {
-            "table_gather": lambda: C.table_gather(labels, pst, C.INT_MAX),
-            "first design's tail": lambda: S.parent_tail(labels, pst),
-            "dense_tail": lambda: C.dense_tail(labels, pst),
-        }
+        variants = {"dense_tail": lambda: C.dense_tail(labels, pst)}
         got = {}
         for variant, fn in variants.items():
-            if variant == "dense_tail":
-                held_equal(variant, fn)
+            held_equal(variant, fn)
             seen = S.device_kernels(fn)
             got[variant] = {"graph_ms": S.graph_ms(fn),
                             "ms": S.cuda_ms(fn),
