@@ -2614,8 +2614,9 @@ def run_cli_scan(big, out_1m, launches_1m, totals, ident: str) -> None:
     def timed_run(what):
         profiling.reset_timings()
         ran = cli_run(argv, what, totals)
-        for name, t in profiling.timings().items():
-            stages[name].append(t["last_ms"])
+        timed = profiling.timings()
+        for name in CLI_STAGES:
+            stages[name].append(timed[name]["last_ms"])
         return ran
 
     with _Recorded(Pipeline, "analyze") as calls:

@@ -42,15 +42,19 @@ torch modules.
 
 __version__ = "0.1.0"
 
-from lidar_ai_recommendation_software_tpu_torch.config import (  # noqa: F401
-    MODULAR_CONFIG,
-    MONOLITH_CONFIG,
-    PipelineConfig,
-)
-from lidar_ai_recommendation_software_tpu_torch.neural import (  # noqa: F401
-    NeuralPipeline,
-)
-from lidar_ai_recommendation_software_tpu_torch.synthetic import (  # noqa: F401
-    sample_venue,
-    scaled_venue,
-)
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
+    stage as _stage)
+
+with _stage("setup.import"):
+    from lidar_ai_recommendation_software_tpu_torch.config import (  # noqa: F401
+        MODULAR_CONFIG,
+        MONOLITH_CONFIG,
+        PipelineConfig,
+    )
+    from lidar_ai_recommendation_software_tpu_torch.neural import (  # noqa: F401
+        NeuralPipeline,
+    )
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (  # noqa: F401
+        sample_venue,
+        scaled_venue,
+    )

@@ -12,7 +12,9 @@ Every command that runs the analytics takes ``--device {cuda,cpu}``
 message; the CPU runs only when asked for by name, or under
 ``--fallback-cpu`` when the card's pipeline fails. ``analyze`` times its
 host stages (``cli load``, ``cli analyze``, ``cli json``, ``cli report``,
-``cli store``) in ``utils.profiling``'s registry.
+``cli store``) as ``utils.profiling.stage`` spans: each name's count,
+total, last and first time in ``profiling.timings()``, and a
+``lidar.<stage>`` range in any ``torch.profiler`` trace.
 
 Commands:
   lidar-crowd-torch analyze <cloud> [--report out.html] [--json out.json]

@@ -28,12 +28,14 @@ from lidar_ai_recommendation_software_tpu_torch.ops import (
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
 from lidar_ai_recommendation_software_tpu_torch.types import (
     DensityResults, People, ProcessedCloud)
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
 
 # Above this many cell x people pair tests people are bucketed into a
 # radius-sized coarse grid (ops/bucket_density.py), as in the JAX package.
 BUCKETED_MIN_PAIRS = 1 << 32
 
 
+@stage("density.people")
 def extract_people(processed: ProcessedCloud,
                    config: PipelineConfig) -> People:
     """Cluster centroids -> xy positions (and heights)."""
@@ -133,6 +135,7 @@ def top_hotspots(grid: torch.Tensor, cell_valid: torch.Tensor,
             torch.where(hmask, top_v, 0.0), hmask)
 
 
+@stage("density.grid")
 def analyze_density(processed: ProcessedCloud, people: People,
                     config: PipelineConfig) -> DensityResults:
     cap = config.capacity

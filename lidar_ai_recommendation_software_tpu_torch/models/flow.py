@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from lidar_ai_recommendation_software_tpu_torch.config import PipelineConfig
 from lidar_ai_recommendation_software_tpu_torch.types import (
     FlowResults, People, ProcessedCloud)
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
 
 
 def bottleneck_uniforms(seed: int = 42, count: int = 3) -> np.ndarray:
@@ -209,6 +210,7 @@ def _bottlenecks_modular(vectors: torch.Tensor, mags: torch.Tensor,
     return sev, ok
 
 
+@stage("flow.field")
 def analyze_flow(processed: ProcessedCloud, people: People,
                  uniforms: torch.Tensor,
                  config: PipelineConfig) -> FlowResults:

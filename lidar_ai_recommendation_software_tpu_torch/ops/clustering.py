@@ -30,6 +30,7 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
     PAIRS_PER_CHUNK)
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.place import (
     place_dense)
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
 
 # Largest clustering buffer the all-pairs backend takes for the monolith
 # variant; above it the column-grid connected components take over, as in
@@ -140,12 +141,15 @@ def dbscan_labels(points: torch.Tensor, mask: torch.Tensor, eps: float,
     ``BRUTEFORCE_HARD_CAP``: its eps is macroscopic in standardised space,
     where columns degenerate); larger ones the column-grid backend
     (``ccl.dbscan_gs``) on a ``ncx`` x ``ncy`` grid of ``column_cap``
-    slots, on every device."""
-    if points.shape[0] <= max(brute_cap, BRUTEFORCE_MAX_POINTS):
-        return dbscan_bruteforce(points, mask, eps, min_samples,
-                                 max_iters=max_iters)
-    return ccl.dbscan_gs(points, mask, eps, min_samples, ncx=ncx, ncy=ncy,
-                         column_cap=column_cap, max_iters=max_iters)
+    slots, on every device. Runs in a ``preprocess.cluster`` span, whose
+    ``host_reads`` a tracing session counts."""
+    with stage("preprocess.cluster"):
+        if points.shape[0] <= max(brute_cap, BRUTEFORCE_MAX_POINTS):
+            return dbscan_bruteforce(points, mask, eps, min_samples,
+                                     max_iters=max_iters)
+        return ccl.dbscan_gs(points, mask, eps, min_samples, ncx=ncx,
+                             ncy=ncy, column_cap=column_cap,
+                             max_iters=max_iters)
 
 
 def _sorted_prefix(points: torch.Tensor, seg: torch.Tensor

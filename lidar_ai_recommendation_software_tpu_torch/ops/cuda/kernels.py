@@ -36,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
+
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
@@ -140,16 +142,19 @@ def _build(so: Path) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library."""
-    so = library_path()
-    if not so.exists():
-        _build(so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    """Build (if needed) and load the kernels' shared library, in a
+    ``setup.kernels`` span whose ``built`` says whether nvcc ran."""
+    with stage("setup.kernels") as attrs:
+        so = library_path()
+        attrs["built"] = not so.exists()
+        if attrs["built"]:
+            _build(so)
+        lib = ctypes.CDLL(str(so))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        return lib
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,

@@ -4,6 +4,8 @@
 on the device; the host sizes the static capacities, re-runs with larger
 ones when a capacity overflowed, converts the device results into
 reference-shaped dicts and runs the rule-based recommendation engine.
+Each call records its stages as ``utils.profiling`` spans (``pipeline.*``),
+which a ``profiling.tracing()`` session keeps as one scan.
 ``analyze_sequence`` does the same for the last of a sequence of frames
 and measures the flow by tracking people over all of them
 (``models/temporal.py``).
@@ -23,6 +25,8 @@ import torch
 
 from lidar_ai_recommendation_software_tpu_torch.config import (
     MONOLITH_CONFIG, PipelineConfig)
+from lidar_ai_recommendation_software_tpu_torch.utils import profiling
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
 from lidar_ai_recommendation_software_tpu_torch.utils.recommendations import (
     generate_recommendations)
 from lidar_ai_recommendation_software_tpu_torch.models import (
@@ -80,6 +84,7 @@ class Pipeline:
     ``device`` is explicit: "cuda" (the default) raises when no CUDA
     device is present; the CPU runs only when asked for by name."""
 
+    @stage("setup.pipeline")
     def __init__(self, config: PipelineConfig = MONOLITH_CONFIG,
                  device: torch.device | str = "cuda"):
         self.device = torch.device(device)
@@ -93,6 +98,7 @@ class Pipeline:
             flow_mod.bottleneck_uniforms(config.flow.random_seed,
                                          config.flow.bottleneck_count),
             dtype=torch.float32, device=self.device)
+        self._analyzed = False
 
     def fit_capacity(self, points: np.ndarray) -> PipelineConfig:
         """Size static capacities to the input, as the JAX package does,
@@ -206,6 +212,24 @@ class Pipeline:
         "force is exact, and it is bounded at 131072 non-ground points. "
         "Downsample first or use the monolith variant.")
 
+    @staticmethod
+    def _device_run(run, cloud: PointCloud, cfg: PipelineConfig,
+                    reason: str) -> tuple:
+        """``run(cloud, cfg)`` in a ``pipeline.device`` span; ``reason``
+        is "first" or the overflow that made this run a re-run, counted as
+        ``pipeline.reruns.<reason>``."""
+        with stage("pipeline.device", reason=reason):
+            if reason != "first":
+                profiling.count("pipeline.reruns." + reason)
+            return run(cloud, cfg)
+
+    @staticmethod
+    def _guard(overflow: torch.Tensor) -> int:
+        """An overflow count on the host: the read waits for the device
+        work queued before it."""
+        with stage("pipeline.guard"):
+            return int(overflow)
+
     def _run_exact(self, run, cloud: PointCloud, cfg: PipelineConfig
                    ) -> tuple:
         """``run(cloud, cfg)``, a tuple that starts (processed, people),
@@ -214,54 +238,66 @@ class Pipeline:
         or the buffer), then the people capacity grown to the next power
         of two that holds every cluster (the reference never drops one).
         Returns the last run's output and its config."""
-        out = run(cloud, cfg)
-        while int(out[0].cluster_overflow) > 0:
+        out = self._device_run(run, cloud, cfg, "first")
+        while (dropped := self._guard(out[0].cluster_overflow)) > 0:
             grown = self._grown_cluster_cfg(cfg)
             if grown is None:
-                raise RuntimeError(self._OVERFLOW_MSG.format(
-                    n=int(out[0].cluster_overflow)))
+                raise RuntimeError(self._OVERFLOW_MSG.format(n=dropped))
             cfg = grown
-            out = run(cloud, cfg)
-        while int(out[1].overflow) > 0:
-            need = cfg.capacity.max_people + int(out[1].overflow)
+            out = self._device_run(run, cloud, cfg, "cluster_overflow")
+        while (dropped := self._guard(out[1].overflow)) > 0:
+            need = cfg.capacity.max_people + dropped
             cfg = cfg.with_capacity(
                 max_people=1 << max(1, (need - 1).bit_length()))
-            out = run(cloud, cfg)
+            out = self._device_run(run, cloud, cfg, "people_overflow")
         return out, cfg
 
     def analyze(self, points: np.ndarray) -> Dict:
         """NumPy points in, reference-shaped result dicts out."""
-        points = np.asarray(points, dtype=np.float64)[:, :3]
-        offset = np.zeros(3)
-        if np.abs(points[:, :2]).max() > self.RECENTER_THRESHOLD:
-            offset[:2] = np.round(points[:, :2].mean(axis=0))
-            points = points - offset
+        with stage("pipeline.analyze", points=len(points),
+                   first=not self._analyzed):
+            self._analyzed = True
+            return self._analyze(points)
 
-        cfg = self.fit_capacity(points)
-        cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
-                                      device=self.device)
+    def _analyze(self, points: np.ndarray) -> Dict:
+        with stage("pipeline.prepare"):
+            points = np.asarray(points, dtype=np.float64)[:, :3]
+            offset = np.zeros(3)
+            if np.abs(points[:, :2]).max() > self.RECENTER_THRESHOLD:
+                offset[:2] = np.round(points[:, :2].mean(axis=0))
+                points = points - offset
+
+        with stage("pipeline.fit"):
+            cfg = self.fit_capacity(points)
+        with stage("pipeline.upload", pinned=False) as attrs:
+            cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
+                                          device=self.device)
+            attrs["bytes"] = cloud.points.nbytes + cloud.mask.nbytes
         (processed, people, res), cfg = self._run_exact(
             self.analyze_device, cloud, cfg)
         # A coarse bucket of the bucketed density count overflowed: double
         # its cap and re-run (it ends: a cap of max_people holds everyone).
-        while int(res.density.radius_overflow) > 0:
+        while self._guard(res.density.radius_overflow) > 0:
             cfg = cfg.with_capacity(density_bucket_cap=min(
                 cfg.capacity.max_people,
                 cfg.capacity.density_bucket_cap * 2))
-            processed, people, res = self.analyze_device(cloud, cfg)
-        density_results = res.density.to_host_dict()
-        flow_results = res.flow.to_host_dict()
-        if offset.any():
-            ox, oy = float(offset[0]), float(offset[1])
-            density_results["origin"] = (
-                density_results["origin"][0] + ox,
-                density_results["origin"][1] + oy)
-            for h in density_results["hotspots"]:
-                h["x"] += ox
-                h["y"] += oy
-            _shift_flow(flow_results, ox, oy)
-        recommendations = generate_recommendations(
-            density_results, flow_results, self.config.recommend)
+            processed, people, res = self._device_run(
+                self.analyze_device, cloud, cfg, "density_bucket")
+        with stage("pipeline.readback"):
+            density_results = res.density.to_host_dict()
+            flow_results = res.flow.to_host_dict()
+            if offset.any():
+                ox, oy = float(offset[0]), float(offset[1])
+                density_results["origin"] = (
+                    density_results["origin"][0] + ox,
+                    density_results["origin"][1] + oy)
+                for h in density_results["hotspots"]:
+                    h["x"] += ox
+                    h["y"] += oy
+                _shift_flow(flow_results, ox, oy)
+        with stage("pipeline.recommend"):
+            recommendations = generate_recommendations(
+                density_results, flow_results, self.config.recommend)
         return {
             "processed": processed,
             "people": people,

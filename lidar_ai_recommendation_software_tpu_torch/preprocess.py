@@ -15,6 +15,7 @@ from lidar_ai_recommendation_software_tpu_torch.config import PipelineConfig
 from lidar_ai_recommendation_software_tpu_torch.ops import clustering
 from lidar_ai_recommendation_software_tpu_torch.types import (
     PointCloud, ProcessedCloud)
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor, axis: int = 0
@@ -79,6 +80,7 @@ def fit_ground_plane(points: torch.Tensor, ground_mask: torch.Tensor,
     return torch.where(n_ground > 10, plane, fallback)
 
 
+@stage("preprocess")
 def preprocess(cloud: PointCloud, config: PipelineConfig) -> ProcessedCloud:
     pc = config.preprocess
     cap = config.capacity

@@ -3,59 +3,257 @@
 The reference has no profiling at all (SURVEY.md §5 — only st.spinner
 UX wrappers). This module provides:
 
-  - ``stage``: a context manager that records wall time per pipeline
-    stage and optionally emits a ``torch.profiler.record_function``
-    annotation so stages show up named in profiler traces;
+  - ``stage``: the one span primitive, a context manager (or decorator)
+    that times a stage of the program into a bounded per-name aggregate
+    (``timings``, ``report``) and, while a ``torch.profiler`` runs, opens
+    a ``record_function`` range ``lidar.<name>``, so the program's spans
+    share the device trace's clock;
+  - ``tracing``: a session that also keeps each span as a record, grouped
+    by scan (every span under one top-level span, such as one
+    ``Pipeline.analyze`` call), with its attributes and counters
+    (``count``), the host reads torch reports among them;
   - ``device_timer``: steady-state seconds per call of a function on the
     card (CUDA events) or the CPU (host clock), with distinct inputs per
     call;
-  - ``trace``: wrapper around ``torch.profiler`` writing a Chrome trace;
-  - a process-wide stage-timing registry (``timings``, ``report``);
   - roofline accounting against the card's published peaks.
+
+Outside a session a span costs two clock reads and an aggregate update,
+and a counter one check of a module-level flag.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import logging
-import os
+import dataclasses
+import functools
+import itertools
+import threading
 import time
-from collections import defaultdict
-from typing import Callable, Dict, List, Optional, Tuple
+import warnings
+from typing import Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-logger = logging.getLogger("lidar_tpu")
+PREFIX = "lidar."  # the ``record_function`` ranges' names
+MAX_SCANS = 10_000  # a session keeps the records of the last this many
+# what torch's sync debug mode warns at each call that waits for the card
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
-_TIMINGS: Dict[str, List[float]] = defaultdict(list)
+
+class _Aggregate:
+    """One span name's calls: count, total, last, first and top-level
+    seconds (those of calls with no span open around them)."""
+
+    __slots__ = ("count", "total_s", "last_s", "first_s", "top_s")
+
+    def __init__(self, seconds: float):
+        self.count = 0
+        self.total_s = self.top_s = 0.0
+        self.first_s = self.last_s = seconds
+
+
+_AGGREGATES: Dict[str, _Aggregate] = {}
+_AGGREGATES_LOCK = threading.Lock()
+
+
+def _aggregate(name: str, seconds: float, top: bool) -> None:
+    with _AGGREGATES_LOCK:
+        agg = _AGGREGATES.get(name)
+        if agg is None:
+            agg = _AGGREGATES[name] = _Aggregate(seconds)
+        agg.count += 1
+        agg.total_s += seconds
+        agg.last_s = seconds
+        if top:
+            agg.top_s += seconds
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    """One span of a session: ``parent`` is the index of the enclosing
+    span in its scan's ``spans`` (None for the scan's root); times are
+    ``time.perf_counter_ns``; ``end_ns`` is 0 while the span is open."""
+
+    name: str
+    scan: int
+    parent: Optional[int]
+    start_ns: int
+    attrs: Dict
+    counters: Dict[str, int] = dataclasses.field(default_factory=dict)
+    end_ns: int = 0
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+@dataclasses.dataclass
+class Scan:
+    """The spans under one top-level span, in the order they opened."""
+
+    id: int
+    spans: List[SpanRecord] = dataclasses.field(default_factory=list)
+
+    def counters(self) -> Dict[str, int]:
+        """Every counter of the scan, summed over its spans."""
+        out: Dict[str, int] = collections.Counter()
+        for sp in self.spans:
+            out.update(sp.counters)
+        return dict(out)
+
+
+class Recorder:
+    """A session's records: ``scans``, a ring of the last ``MAX_SCANS``
+    scans, and ``dropped``, the scans that fell out of it."""
+
+    def __init__(self):
+        self.scans: Deque[Scan] = collections.deque(maxlen=MAX_SCANS)
+        self.dropped = 0
+        self._ids = itertools.count()
+        self._lock = threading.Lock()
+
+    def _open(self, span: "_Stage", parent: Optional["_Stage"]) -> None:
+        if parent is None or parent.record is None:
+            with self._lock:
+                scan = Scan(next(self._ids))
+                if len(self.scans) == self.scans.maxlen:
+                    self.dropped += 1
+                self.scans.append(scan)
+            up = None
+        else:
+            scan, up = parent.scan, parent.index
+        span.scan, span.index = scan, len(scan.spans)
+        span.record = SpanRecord(span.name, scan.id, up, 0, span.attrs)
+        scan.spans.append(span.record)
+
+
+_SESSION: Optional[Recorder] = None  # the open session, if any
+
+
+class _Thread(threading.local):
+    def __init__(self):
+        self.stack: List[_Stage] = []  # this thread's open spans
+
+
+_THREAD = _Thread()
+
+
+class _Stage:
+    __slots__ = ("name", "attrs", "record", "scan", "index", "_t0", "_top",
+                 "_range")
+
+    def __init__(self, name: str, attrs: Dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self) -> Dict:
+        stack = _THREAD.stack
+        self._top = not stack
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(PREFIX + self.name)
+            self._range.__enter__()
+        self.record = None
+        if _SESSION is not None:
+            _SESSION._open(self, stack[-1] if stack else None)
+        stack.append(self)
+        self._t0 = time.perf_counter_ns()
+        if self.record is not None:
+            self.record.start_ns = self._t0
+        return self.attrs
+
+    def __exit__(self, *exc) -> bool:
+        t1 = time.perf_counter_ns()
+        _THREAD.stack.pop()
+        if self.record is not None:
+            self.record.end_ns = t1
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _aggregate(self.name, (t1 - self._t0) * 1e-9, self._top)
+        return False
+
+    def __call__(self, fn: Callable) -> Callable:
+        name, attrs = self.name, self.attrs
+
+        @functools.wraps(fn)
+        def staged(*args, **kwargs):
+            with _Stage(name, dict(attrs)):
+                return fn(*args, **kwargs)
+        return staged
+
+
+def stage(name: str, **attrs) -> _Stage:
+    """A span named ``name``: ``with stage(name, **attrs) as attrs:``
+    around a block (the yielded dict takes attributes known only inside
+    it), or ``@stage(name)`` on a function. Nests; the spans open on a
+    thread are that thread's own."""
+    return _Stage(name, attrs)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` of the innermost open span, in a
+    session; nothing outside one."""
+    if _SESSION is None:
+        return
+    stack = _THREAD.stack
+    if stack and stack[-1].record is not None:
+        counters = stack[-1].record.counters
+        counters[name] = counters.get(name, 0) + n
 
 
 @contextlib.contextmanager
-def stage(name: str, annotate: bool = True):
-    """Time a pipeline stage; nests with torch.profiler traces."""
-    ctx = (torch.profiler.record_function(name) if annotate
-           else contextlib.nullcontext())
-    t0 = time.perf_counter()
-    with ctx:
-        yield
-    dt = time.perf_counter() - t0
-    _TIMINGS[name].append(dt)
-    logger.debug("stage %s: %.1f ms", name, dt * 1000)
+def tracing() -> Iterator[Recorder]:
+    """A session: every span opened inside it is kept as a record in the
+    yielded ``Recorder``, and each call that torch reports as waiting for
+    the card (its sync debug mode, switched to "warn" for the session and
+    restored after) adds one to the counter ``host_reads`` of the
+    innermost open span; those warnings go no further. Torch's mode does
+    not detect every synchronising call, so the count is a floor. One
+    session at a time in a process."""
+    global _SESSION
+    if _SESSION is not None:
+        raise RuntimeError("a tracing session is already open")
+    on_card = torch.cuda.is_available()
+    with warnings.catch_warnings():
+        shown = warnings.showwarning
+
+        def host_read(message, category, *args, **kwargs):
+            if str(message).startswith(SYNC_WARNING):
+                count("host_reads")
+            else:
+                shown(message, category, *args, **kwargs)
+
+        warnings.filterwarnings("always", message=SYNC_WARNING)
+        # torch's notice, on switching the mode, that it is a prototype
+        warnings.filterwarnings("ignore", message="Synchronization debug")
+        warnings.showwarning = host_read
+        mode = torch.cuda.get_sync_debug_mode() if on_card else 0
+        if on_card:
+            torch.cuda.set_sync_debug_mode("warn")
+        _SESSION = Recorder()
+        try:
+            yield _SESSION
+        finally:
+            _SESSION = None
+            if on_card:
+                torch.cuda.set_sync_debug_mode(mode)
 
 
 def timings() -> Dict[str, Dict[str, float]]:
-    out = {}
-    for name, vals in _TIMINGS.items():
-        arr = np.asarray(vals)
-        out[name] = {"count": len(vals), "total_s": float(arr.sum()),
-                     "mean_ms": float(arr.mean() * 1000),
-                     "last_ms": float(arr[-1] * 1000)}
-    return out
+    """Each span name's calls: count, total seconds, mean, last and first
+    ms, and the seconds of the calls with no span open around them."""
+    with _AGGREGATES_LOCK:
+        return {name: {"count": a.count, "total_s": a.total_s,
+                       "mean_ms": a.total_s / a.count * 1000,
+                       "last_ms": a.last_s * 1000,
+                       "first_ms": a.first_s * 1000, "top_s": a.top_s}
+                for name, a in _AGGREGATES.items()}
 
 
 def reset_timings() -> None:
-    _TIMINGS.clear()
+    with _AGGREGATES_LOCK:
+        _AGGREGATES.clear()
 
 
 def report() -> str:
@@ -102,19 +300,6 @@ def device_timer(fn: Callable, make_input: Callable[[int], tuple],
         r = fn(*make_input(warmup + i))
     _host_read(pull(r))
     return (time.perf_counter() - t0) / iters
-
-
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Capture a ``torch.profiler`` trace of the block (the CPU, and the
-    card when there is one) into ``logdir/trace.json`` (Chrome format)."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 # ---------------------------------------------------------------------------

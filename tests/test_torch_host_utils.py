@@ -142,7 +142,7 @@ def test_preprocess_needs_the_card_by_default(fixture_points):
 
 def test_stage_timing_registry():
     profiling.reset_timings()
-    with profiling.stage("unit-test-stage", annotate=False):
+    with profiling.stage("unit-test-stage"):
         _ = sum(range(1000))
     t = profiling.timings()
     assert t["unit-test-stage"]["count"] == 1
@@ -151,11 +151,13 @@ def test_stage_timing_registry():
 
 
 def test_stage_annotates_torch_profiler_traces(tmp_path):
-    with profiling.trace(str(tmp_path)) as prof:
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with profiling.stage("annotated-stage"):
             torch.ones(8).sum()
     names = {e.key for e in prof.key_averages()}
-    assert "annotated-stage" in names
+    assert "lidar.annotated-stage" in names
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
     assert (tmp_path / "trace.json").stat().st_size > 0
 
 

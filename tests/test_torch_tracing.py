@@ -1,0 +1,267 @@
+"""The port's tracer (``utils/profiling.py``): spans and counters inside
+``Pipeline.analyze``, a session's scan records, the bounded aggregates,
+the ``lidar.*`` ranges in ``torch.profiler`` traces, and the host reads
+torch reports on the card.
+
+This file imports no JAX, so its card tests also run where JAX is not
+installed:
+
+    python -m pytest --noconftest tests/test_torch_tracing.py -q
+"""
+
+import sys
+import threading
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+    sample_venue, scaled_venue)
+from lidar_ai_recommendation_software_tpu_torch.utils import profiling
+
+# the spans of one analysis that nothing overflows, in the order they
+# open, each with its parent's index
+ANALYZE_SPANS = [
+    ("pipeline.analyze", None), ("pipeline.prepare", 0),
+    ("pipeline.fit", 0), ("pipeline.upload", 0), ("pipeline.device", 0),
+    ("preprocess", 4), ("preprocess.cluster", 5), ("density.people", 4),
+    ("density.grid", 4), ("flow.field", 4), ("pipeline.guard", 0),
+    ("pipeline.guard", 0), ("pipeline.guard", 0), ("pipeline.readback", 0),
+    ("pipeline.recommend", 0)]
+
+
+@pytest.fixture(scope="module")
+def venue():
+    return sample_venue()
+
+
+@pytest.fixture(scope="module")
+def pipe(venue):
+    p = Pipeline(device="cpu")
+    p.analyze(venue)  # the first call's one-off work
+    return p
+
+
+def _same(a, b):
+    for key in ("density", "flow"):
+        for k, v in a[key].items():
+            if isinstance(v, np.ndarray):
+                np.testing.assert_array_equal(v, b[key][k])
+            elif k == "flow_vectors":
+                for name, arr in v.items():
+                    np.testing.assert_array_equal(arr, b[key][k][name])
+            else:
+                assert v == b[key][k], (key, k)
+    assert a["recommendations"] == b["recommendations"]
+    np.testing.assert_array_equal(a["processed"].labels.numpy(),
+                                  b["processed"].labels.numpy())
+
+
+def test_one_analyze_is_one_scan_with_nested_spans(pipe, venue):
+    with profiling.tracing() as rec:
+        pipe.analyze(venue)
+    assert rec.dropped == 0 and len(rec.scans) == 1
+    scan = rec.scans[0]
+    assert [(sp.name, sp.parent) for sp in scan.spans] == ANALYZE_SPANS
+    assert {sp.scan for sp in scan.spans} == {scan.id}
+    for sp in scan.spans:
+        assert sp.end_ns >= sp.start_ns > 0, sp.name
+        if sp.parent is not None:
+            up = scan.spans[sp.parent]
+            assert up.start_ns <= sp.start_ns <= sp.end_ns <= up.end_ns
+    ends = [sp.end_ns for sp in scan.spans if sp.parent == 0]
+    assert ends == sorted(ends)  # the root's children one after another
+    root, upload, device = scan.spans[0], scan.spans[3], scan.spans[4]
+    assert root.attrs == {"points": len(venue), "first": False}
+    cap = 16_384  # the fixture's point capacity
+    assert upload.attrs == {"pinned": False, "bytes": cap * 12 + cap}
+    assert device.attrs == {"reason": "first"}
+    assert scan.counters() == {}  # no rerun, and the CPU has no host reads
+
+
+class _SmallBuffer(Pipeline):
+    """A clustering buffer of 4,096 points, which the fixture's non-ground
+    points overflow once."""
+
+    def fit_capacity(self, points):
+        return super().fit_capacity(points).with_capacity(
+            cluster_capacity=4096)
+
+
+def test_an_overflow_reruns_the_device_program_once(venue):
+    small = _SmallBuffer(device="cpu")
+    with profiling.tracing() as rec:
+        got = small.analyze(venue)
+    (scan,) = rec.scans
+    devices = [sp for sp in scan.spans if sp.name == "pipeline.device"]
+    assert [sp.attrs["reason"] for sp in devices] == ["first",
+                                                      "cluster_overflow"]
+    assert devices[1].counters == {"pipeline.reruns.cluster_overflow": 1}
+    assert scan.counters() == {"pipeline.reruns.cluster_overflow": 1}
+    assert [sp.name for sp in scan.spans].count("preprocess.cluster") == 2
+    assert scan.spans[0].attrs["first"] is True
+    assert got["density"]["total_people"] == 446
+
+
+def test_outside_a_session_nothing_is_kept(pipe, venue, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("kept a record or opened a range")
+    monkeypatch.setattr(profiling.Recorder, "_open", refuse)
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    profiling.reset_timings()
+    pipe.analyze(venue)
+    t = profiling.timings()
+    assert t["pipeline.analyze"]["count"] == 1
+    assert t["pipeline.guard"]["count"] == 3
+    assert t["pipeline.analyze"]["top_s"] == t["pipeline.analyze"]["total_s"]
+    assert t["pipeline.fit"]["top_s"] == 0.0  # nested in the analysis
+    agg = profiling._AGGREGATES["pipeline.fit"]
+    for _ in range(1000):
+        with profiling.stage("pipeline.fit"):
+            pass
+    assert profiling._AGGREGATES["pipeline.fit"] is agg  # one fixed entry
+    assert set(profiling._AGGREGATES) == set(t)
+    assert profiling.timings()["pipeline.fit"]["count"] == 1001
+    profiling.count("host_reads")  # no session: nothing to count into
+
+
+def test_profiler_traces_hold_the_pipeline_ranges(pipe, venue, tmp_path):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pipe.analyze(venue)
+    names = {e.key for e in prof.key_averages()}
+    want = {"lidar." + name for name, _ in ANALYZE_SPANS}
+    assert want <= names, want - names
+
+
+def test_results_are_bit_equal_with_a_session(pipe, venue):
+    plain = pipe.analyze(venue)
+    with profiling.tracing():
+        traced = pipe.analyze(venue)
+    _same(plain, traced)
+
+
+def test_the_ring_keeps_the_last_scans(monkeypatch):
+    monkeypatch.setattr(profiling, "MAX_SCANS", 3)
+    with profiling.tracing() as rec:
+        for i in range(5):
+            with profiling.stage("unit", i=i):
+                with profiling.stage("inner"):
+                    profiling.count("items", 2)
+    assert rec.dropped == 2
+    assert [sc.id for sc in rec.scans] == [2, 3, 4]
+    assert [sc.spans[0].attrs["i"] for sc in rec.scans] == [2, 3, 4]
+    assert all(sc.counters() == {"items": 2} for sc in rec.scans)
+
+
+def test_sync_warnings_count_as_host_reads_and_go_no_further():
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        filters = list(warnings.filters)
+        shown = warnings.showwarning
+        with profiling.tracing() as rec:
+            with profiling.stage("outer"):
+                with profiling.stage("inner"):
+                    for _ in range(3):
+                        warnings.warn(profiling.SYNC_WARNING + " (Triggered "
+                                      "internally at Functions.cpp:1.)")
+                warnings.warn(profiling.SYNC_WARNING)
+                warnings.warn("another warning", RuntimeWarning)
+            with pytest.raises(RuntimeError, match="already open"):
+                with profiling.tracing():
+                    pass
+        assert warnings.filters == filters and warnings.showwarning is shown
+    (scan,) = rec.scans
+    assert [sp.counters for sp in scan.spans] == [{"host_reads": 1},
+                                                  {"host_reads": 3}]
+    assert [str(w.message) for w in caught] == ["another warning"]
+    assert profiling._SESSION is None
+
+
+def test_each_thread_keeps_its_own_spans():
+    workers, steps = 16, 200
+    barrier = threading.Barrier(workers, timeout=30)
+
+    def work(k):
+        with profiling.stage("job", k=k):
+            barrier.wait()
+            for _ in range(steps):
+                with profiling.stage("step"):
+                    profiling.count("n")
+            barrier.wait()
+
+    profiling.reset_timings()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with profiling.tracing() as rec:
+            threads = [threading.Thread(target=work, args=(k,))
+                       for k in range(workers)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(sc.spans[0].attrs["k"] for sc in rec.scans) == list(
+        range(workers))
+    for sc in rec.scans:
+        assert len(sc.spans) == steps + 1
+        assert all(sp.parent == 0 for sp in sc.spans[1:])
+        assert sc.counters() == {"n": steps}
+    t = profiling.timings()  # no update of the aggregates lost
+    assert (t["job"]["count"], t["step"]["count"]) == (workers,
+                                                       workers * steps)
+# -- on the card --------------------------------------------------------------
+
+# -- on the card ---------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch reports host reads only "
+                    "for CUDA tensors, and the kernels have no CPU mode")
+    return Pipeline(device="cuda")
+
+
+@pytest.mark.cuda
+def test_host_reads_of_the_all_pairs_clustering(card):
+    frame = scaled_venue(40_960)
+    card.analyze(frame)
+    with profiling.tracing() as rec:
+        card.analyze(frame)
+    (scan,) = rec.scans
+    reads = sum(sp.counters.get("host_reads", 0) for sp in scan.spans
+                if sp.name == "preprocess.cluster")
+    assert reads >= 64  # one nonzero a chunk of 512 rows of 32,768
+    guards = [sp for sp in scan.spans if sp.name == "pipeline.guard"]
+    assert all(sp.counters.get("host_reads", 0) >= 1 for sp in guards)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "error"])
+def test_sync_debug_mode_is_restored(card, mode):
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        before = torch.cuda.get_sync_debug_mode()
+        with profiling.tracing():
+            assert torch.cuda.get_sync_debug_mode() == 1  # warn
+        assert torch.cuda.get_sync_debug_mode() == before
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_setup_kernels_reports_a_library_found(card):
+    kernels.load_library()  # built here if this is the first use
+    kernels.load_library.cache_clear()
+    with profiling.tracing() as rec:
+        kernels.load_library()
+    (scan,) = rec.scans
+    assert [(sp.name, sp.attrs) for sp in scan.spans] == [
+        ("setup.kernels", {"built": False})]
