@@ -18,7 +18,8 @@ Usage:
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,6 +69,54 @@ def _shift_flow(flow_results: Dict, ox: float, oy: float) -> None:
         flow_results["flow_vectors"]["positions"] + np.array([ox, oy]))
 
 
+@dataclasses.dataclass(frozen=True)
+class MeasuredScan:
+    """A scan with its extent: ``points`` (N, 3) on some device,
+    ``extent`` (2, 3) on the same device, the x, y, z minima over the
+    maxima, and ``host``, its NumPy copy."""
+
+    points: torch.Tensor
+    extent: torch.Tensor
+    host: np.ndarray
+
+    def __len__(self) -> int:
+        return self.points.shape[0]
+
+
+def measure_scan(points) -> MeasuredScan:
+    """The extent of ``points`` (a NumPy array, taken by torch on the CPU,
+    or a float tensor) in one reduction on the points' device and one
+    host read; a ``MeasuredScan`` is returned as it is. Minima and maxima
+    are exact, in the points' own dtype (float32 or float64; other NumPy
+    dtypes become float64)."""
+    if isinstance(points, MeasuredScan):
+        return points
+    if not isinstance(points, torch.Tensor):
+        points = np.asarray(points)
+        if points.dtype not in (np.float32, np.float64):
+            points = points.astype(np.float64)
+        points = torch.from_numpy(np.ascontiguousarray(points))
+    extent = torch.stack(torch.aminmax(points, dim=0))
+    return MeasuredScan(points, extent, extent.cpu().numpy())
+
+
+def column_keys(points: torch.Tensor, mins: torch.Tensor, cell: float,
+                ccx: int, ccy: int) -> torch.Tensor:
+    """(N, 2) int64 clustering columns of ``points``, computed on their
+    device bit for bit as NumPy's ``clip(((xy - mins) / cell).astype(
+    int64), 0, (ccx, ccy) - 1)`` in the points' dtype: ``mins`` a tensor
+    on that device, and ``cell`` divided as a tensor there too (CUDA
+    divides by a host scalar as a multiply by its reciprocal, which moves
+    the last bit of a quotient, and a point on a column edge to the next
+    column)."""
+    cell_t = torch.full((), float(cell), dtype=points.dtype,
+                        device=points.device)
+    keys = ((points[:, :2] - mins[:2]) / cell_t).to(torch.int64)
+    keys[:, 0].clamp_(0, ccx - 1)
+    keys[:, 1].clamp_(0, ccy - 1)
+    return keys
+
+
 def _bucket_eighth_octave(n: int, floor: int = 64) -> int:
     """Smallest multiple of 2^(k-3) >= n, where 2^(k-1) < n <= 2^k: caps
     padding at 12.5% while keeping capacities multiples of a large power
@@ -100,19 +149,24 @@ class Pipeline:
             dtype=torch.float32, device=self.device)
         self._analyzed = False
 
-    def fit_capacity(self, points: np.ndarray) -> PipelineConfig:
+    def fit_capacity(self, points) -> PipelineConfig:
         """Size static capacities to the input, as the JAX package does,
         so both packages pick the same ones: point and people capacities
         bucketed to eighths of an octave, the density/flow grid covering
         the venue extent, the clustering buffer the next power of two of
         0.8 n, and the clustering column grid (eps-sized columns, at most
-        1,280 a side) with a column cap measured from the points."""
+        1,280 a side) with a column cap measured from the points.
+
+        ``points``: a NumPy array (measured by torch on the CPU), a float
+        tensor (measured on its own device) or a ``MeasuredScan``. The
+        formulas run on the host from the extent; the column occupancy
+        is counted where the points are."""
+        scan = measure_scan(points)
         cap = self.config.capacity
-        n = len(points)
+        n = len(scan)
         max_points = max(cap.max_points, _bucket_eighth_octave(n))
 
-        mins = points.min(axis=0)
-        maxs = points.max(axis=0)
+        mins, maxs = scan.host
         g = self.config.density.grid_size
         margin = 2 * self.config.density.margin_cells + 2
         need_x = int(np.ceil((maxs[0] - mins[0]) / g)) + margin
@@ -145,18 +199,20 @@ class Pipeline:
         def ceil8(v):
             return ((int(v) + 7) // 8) * 8
 
-        # Column cap from the measured occupancy: one host bincount of the
-        # columns the device will use gives the largest column; +3 covers
-        # the slightly different extent of the non-ground subset that is
+        # Column cap from the measured occupancy: one count of the columns
+        # the device will use gives the largest column; +3 covers the
+        # slightly different extent of the non-ground subset that is
         # clustered (the overflow retry guards exactness).
         if n > 32768:  # column path only (small sets take the all-pairs)
             cell = max(eps, (maxs[:2] - mins[:2]).max() / (min(ccx, ccy)
                                                            - 1e-3))
-            cxi = np.clip(((points[:, 0] - mins[0]) / cell).astype(
-                np.int64), 0, ccx - 1)
-            cyi = np.clip(((points[:, 1] - mins[1]) / cell).astype(
-                np.int64), 0, ccy - 1)
-            max_occ = int(np.bincount(cxi * ccy + cyi).max())
+            keys = column_keys(scan.points, scan.extent[0], cell, ccx, ccy)
+            counts = torch.zeros(ccx * ccy, dtype=torch.int32,
+                                 device=keys.device)
+            # not bincount: on the card it reads the keys' range to the host
+            counts.index_add_(0, keys[:, 0] * ccy + keys[:, 1],
+                              counts.new_ones(1).expand(n))
+            max_occ = int(counts.max())
             ccol = min(64, max(8, ceil8(max_occ + 3)))
         else:
             occ = 0.8 * n / float(ccx * ccy)
@@ -259,20 +315,35 @@ class Pipeline:
             self._analyzed = True
             return self._analyze(points)
 
-    def _analyze(self, points: np.ndarray) -> Dict:
+    def _ingest(self, points: np.ndarray
+                ) -> Tuple[PointCloud, PipelineConfig, np.ndarray]:
+        """The scan crosses to the device once, as float64, and everything
+        sized from it is measured there: (cloud, config, offset), the
+        offset the recentring subtracted (zeros when it did not engage).
+        Host reads: the extent, and above 32,768 points the largest column
+        count; a recentred scan adds the offset's copy and a second
+        extent."""
         with stage("pipeline.prepare"):
-            points = np.asarray(points, dtype=np.float64)[:, :3]
+            points = np.ascontiguousarray(
+                np.asarray(points, dtype=np.float64)[:, :3])
+        with stage("pipeline.upload", pinned=False, bytes=points.nbytes):
+            scan = torch.from_numpy(points).to(self.device)
+        with stage("pipeline.fit", device=scan.device.type):
+            measured = measure_scan(scan)
             offset = np.zeros(3)
-            if np.abs(points[:, :2]).max() > self.RECENTER_THRESHOLD:
+            # the largest |x| or |y| is the larger of the extent's ends'
+            if np.abs(measured.host[:, :2]).max() > self.RECENTER_THRESHOLD:
+                profiling.count("pipeline.recentred")
                 offset[:2] = np.round(points[:, :2].mean(axis=0))
-                points = points - offset
+                measured = measure_scan(scan - torch.tensor(
+                    offset, device=scan.device))
+            cfg = self.fit_capacity(measured)
+            cloud = PointCloud.from_tensor(measured.points,
+                                           cfg.capacity.max_points)
+        return cloud, cfg, offset
 
-        with stage("pipeline.fit"):
-            cfg = self.fit_capacity(points)
-        with stage("pipeline.upload", pinned=False) as attrs:
-            cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
-                                          device=self.device)
-            attrs["bytes"] = cloud.points.nbytes + cloud.mask.nbytes
+    def _analyze(self, points: np.ndarray) -> Dict:
+        cloud, cfg, offset = self._ingest(points)
         (processed, people, res), cfg = self._run_exact(
             self.analyze_device, cloud, cfg)
         # A coarse bucket of the bucketed density count overflowed: double

@@ -59,6 +59,22 @@ class PointCloud:
         return cls(points=torch.from_numpy(buf).to(device),
                    mask=torch.from_numpy(mask).to(device))
 
+    @classmethod
+    def from_tensor(cls, pts: torch.Tensor,
+                    capacity: Optional[int] = None) -> "PointCloud":
+        """``from_numpy``'s cloud, bit for bit, built on the device that
+        holds ``pts`` (float64 or float32, (N, >=3)): cast to float32
+        (round to nearest even, as NumPy's ``astype``), padding and mask."""
+        n = pts.shape[0]
+        cap = capacity or n
+        if n > cap:
+            raise ValueError(f"point count {n} exceeds capacity {cap}")
+        buf = torch.zeros((cap, 3), dtype=torch.float32, device=pts.device)
+        buf.narrow(0, 0, n).copy_(pts[:, :3])
+        mask = torch.zeros((cap,), dtype=torch.bool, device=pts.device)
+        mask.narrow(0, 0, n).fill_(True)
+        return cls(points=buf, mask=mask)
+
 
 @dataclasses.dataclass
 class ProcessedCloud:

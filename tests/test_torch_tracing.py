@@ -22,12 +22,13 @@ from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
     sample_venue, scaled_venue)
 from lidar_ai_recommendation_software_tpu_torch.utils import profiling
+from port_helpers import UTM_SHIFT
 
 # the spans of one analysis that nothing overflows, in the order they
 # open, each with its parent's index
 ANALYZE_SPANS = [
     ("pipeline.analyze", None), ("pipeline.prepare", 0),
-    ("pipeline.fit", 0), ("pipeline.upload", 0), ("pipeline.device", 0),
+    ("pipeline.upload", 0), ("pipeline.fit", 0), ("pipeline.device", 0),
     ("preprocess", 4), ("preprocess.cluster", 5), ("density.people", 4),
     ("density.grid", 4), ("flow.field", 4), ("pipeline.guard", 0),
     ("pipeline.guard", 0), ("pipeline.guard", 0), ("pipeline.readback", 0),
@@ -75,12 +76,26 @@ def test_one_analyze_is_one_scan_with_nested_spans(pipe, venue):
             assert up.start_ns <= sp.start_ns <= sp.end_ns <= up.end_ns
     ends = [sp.end_ns for sp in scan.spans if sp.parent == 0]
     assert ends == sorted(ends)  # the root's children one after another
-    root, upload, device = scan.spans[0], scan.spans[3], scan.spans[4]
+    root, upload, fit, device = scan.spans[0], *scan.spans[2:5]
     assert root.attrs == {"points": len(venue), "first": False}
-    cap = 16_384  # the fixture's point capacity
-    assert upload.attrs == {"pinned": False, "bytes": cap * 12 + cap}
+    # the float64 scan crosses once; the fit casts and pads it there
+    assert upload.attrs == {"pinned": False, "bytes": len(venue) * 3 * 8}
+    assert fit.attrs == {"device": "cpu"}
     assert device.attrs == {"reason": "first"}
     assert scan.counters() == {}  # no rerun, and the CPU has no host reads
+
+
+def test_a_recentred_scan_is_counted_once(pipe, venue):
+    with profiling.tracing() as rec:
+        got = pipe.analyze(venue + UTM_SHIFT)
+    (scan,) = rec.scans
+    (fit,) = [sp for sp in scan.spans if sp.name == "pipeline.fit"]
+    assert fit.counters == {"pipeline.recentred": 1}
+    assert scan.counters() == {"pipeline.recentred": 1}
+    np.testing.assert_array_equal(
+        got["coordinate_offset"][:2],
+        np.round((venue[:, :2] + UTM_SHIFT[:2]).mean(axis=0)))
+    assert got["density"]["total_people"] == 446
 
 
 class _SmallBuffer(Pipeline):
@@ -217,7 +232,7 @@ def test_each_thread_keeps_its_own_spans():
     t = profiling.timings()  # no update of the aggregates lost
     assert (t["job"]["count"], t["step"]["count"]) == (workers,
                                                        workers * steps)
-# -- on the card --------------------------------------------------------------
+
 
 # -- on the card ---------------------------------------------------------------
 
@@ -241,6 +256,28 @@ def test_host_reads_of_the_all_pairs_clustering(card):
     assert reads >= 64  # one nonzero a chunk of 512 rows of 32,768
     guards = [sp for sp in scan.spans if sp.name == "pipeline.guard"]
     assert all(sp.counters.get("host_reads", 0) >= 1 for sp in guards)
+
+
+@pytest.mark.cuda
+def test_the_1m_scan_is_measured_with_two_host_reads(card):
+    """At 1M points the host makes no pass over the scan before it
+    crosses, and the fit reads the host twice: the extent and the largest
+    column count. A recentred scan is counted once."""
+    scan = scaled_venue(1_000_000)
+    shifted = scan + UTM_SHIFT
+    card.analyze(scan)
+    card.analyze(shifted)
+    with profiling.tracing() as rec:
+        card.analyze(scan)
+        card.analyze(shifted)
+    plain, moved = rec.scans
+    spans = {sp.name: sp for sp in plain.spans}
+    assert "host_reads" not in spans["pipeline.prepare"].counters
+    assert spans["pipeline.fit"].counters == {"host_reads": 2}
+    assert spans["pipeline.fit"].attrs == {"device": "cuda"}
+    assert spans["pipeline.upload"].attrs["bytes"] == 24_000_000
+    assert "pipeline.recentred" not in plain.counters()
+    assert moved.counters()["pipeline.recentred"] == 1
 
 
 @pytest.mark.cuda

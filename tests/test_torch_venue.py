@@ -12,6 +12,7 @@ scatter sums).
 
 import numpy as np
 import pytest
+import torch
 
 from lidar_ai_recommendation_software_tpu.config import MONOLITH_CONFIG
 from lidar_ai_recommendation_software_tpu.models import density as JD
@@ -21,7 +22,7 @@ from lidar_ai_recommendation_software_tpu.synthetic import (
 from lidar_ai_recommendation_software_tpu_torch.models import density as TD
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
-from port_helpers import port_cfg
+from port_helpers import FIT_CLOUDS, fit_cloud, port_cfg
 
 TOL = 1e-5
 
@@ -66,6 +67,36 @@ def test_venue_50k_matches_jax(venue):
     assert (cfg.capacity.cluster_cells_x, cfg.capacity.cluster_column_cap
             ) == (256, 16)
     _assert_same(tpipe.analyze(venue), jpipe.analyze(venue), people=2236)
+
+
+def _jax_analyze_fit(points):
+    """The config the JAX package's ``analyze`` fits: to the float64
+    points, recentred when their coordinates are UTM-sized."""
+    points = np.asarray(points, dtype=np.float64)[:, :3]
+    if np.abs(points[:, :2]).max() > JaxPipe.RECENTER_THRESHOLD:
+        offset = np.zeros(3)
+        offset[:2] = np.round(points[:, :2].mean(axis=0))
+        points = points - offset
+    return JaxPipe().fit_capacity(points)
+
+
+@pytest.mark.parametrize("given", ["numpy", "tensor", "analyze"])
+@pytest.mark.parametrize("name", FIT_CLOUDS)
+def test_fit_capacity_matches_jax(name, given):
+    """The port's capacity fit, which measures the points with torch on
+    their device, picks the JAX package's capacities: given a NumPy array,
+    the same points as a float64 tensor, and on ``analyze``'s path (the
+    scan uploaded once and recentred there). The card's picks are held to
+    these in tests/test_torch_fit.py."""
+    points = fit_cloud(name)
+    pipe = Pipeline(device="cpu")
+    if given == "analyze":
+        want, got = _jax_analyze_fit(points), pipe._ingest(points)[1]
+    else:
+        x = (points if given == "numpy"
+             else torch.from_numpy(np.asarray(points, np.float64)))
+        want, got = JaxPipe().fit_capacity(points), pipe.fit_capacity(x)
+    assert port_cfg(want) == got
 
 
 class _SmallColumns:

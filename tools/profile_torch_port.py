@@ -12,9 +12,9 @@ It prints the card's name and power limit. Then, for the seed-42 fixture
 1,000,000 and 3,000,000 points, of ``Pipeline.analyze``
 
   - the median wall time of each stage over 5 warm runs, on the host clock
-    with the device synchronised after every stage: the host's capacity
-    fit and upload, then the device program's stages (clustering is timed
-    inside preprocess);
+    with the device synchronised after every stage: the scan's upload
+    and the capacity fit on the device (``Pipeline._ingest``), then the
+    device program's stages (clustering is timed inside preprocess);
   - from ``torch.profiler``, over 3 warm ``analyze`` calls: the device's
     busy time (the sum of its kernels' times) against the wall time, and
     the kernels that take the most device time.
@@ -55,9 +55,8 @@ from lidar_ai_recommendation_software_tpu_torch.ops.grouping import (
     ball_group, group_features)
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.preprocess import preprocess
-from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
 
-STAGES = ("fit_capacity (host)", "upload (from_numpy)", "preprocess",
+STAGES = ("ingest (upload, fit, cloud)", "preprocess",
           "  clustering (in preprocess)", "extract_people",
           "analyze_density", "analyze_flow", "to_host_dict")
 
@@ -84,12 +83,8 @@ def stage_times(pipe: Pipeline, points: np.ndarray, reps: int = 5) -> dict:
         for rep in range(reps + 1):  # the first run warms up
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            cfg = pipe.fit_capacity(points)
+            cloud, cfg, _ = pipe._ingest(points)
             row = [_sync_ms(t0)]
-            t0 = time.perf_counter()
-            cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
-                                          device=pipe.device)
-            row.append(_sync_ms(t0))
             t0 = time.perf_counter()
             proc = preprocess(cloud, cfg)
             row += [_sync_ms(t0), inner["ms"]]
