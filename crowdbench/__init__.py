@@ -10,8 +10,9 @@ PyTorch reference and the comparison that decides ``correct``, the work
 counts and peaks of the rooflines, and the readers of the per-layer
 metrics. ``BENCHMARK.json`` at the root of the repository names the cells;
 each configuration (``configs/<name>.json``), traffic mix
-(``traffic/<name>.json``) and per-layer metric (``metrics/<name>.py``) is
-a file of its own, found by name.
+(``traffic/<name>.json``), kind of call (``kinds/<kind>.py``: what one
+call is, its pool, reference and comparison) and per-layer metric
+(``metrics/<name>.py``) is a file of its own, found by name.
 
 Nothing here imports JAX or the JAX package, and the reference imports
 nothing of the port.

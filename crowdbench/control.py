@@ -4,11 +4,12 @@
         --first-seed <s> --seconds <s> [--out <file>]
 
 For each of ``--seeds`` seeds, in one process on the card: the cell's pool
-and a short window of its closed loop through ``Pipeline.analyze``, every
-scan judged as a run judges it (``run.judge``): the program's readings,
-the worst over the window. Then the control, the plain reference computed
-in bfloat16 (the configuration states float32 points) put in the
-program's place on the same scans and judged the same way: the control's
+and a short window of its closed loop through the cell's kind (for
+``scan``, ``Pipeline.analyze``), every scan judged as a run judges it
+(``run.judge``): the program's readings, the worst over the window. Then
+the control, the plain reference computed in bfloat16 (the configuration
+states float32 points) put in the program's place on the same scans
+(``as_kept`` of the kind) and judged the same way: the control's
 readings. Each of the control's scans is judged against the limits by
 ``compare.judge``, as a run judges the program's: the control has to come
 out not correct on every seed, and the program correct. One JSON line a
@@ -31,49 +32,42 @@ import torch
 from crowdbench import compare, run, spec, traffic
 
 
-def as_program(ref: dict) -> dict:
-    """A reference answer in the shape of ``Pipeline.analyze``'s dicts."""
-    f = dict(ref["flow"], flow_vectors={"vectors": ref["flow"]["vectors"]})
-    return {"density": ref["density"], "flow": f,
-            "recommendations": ref["recommendations"],
-            "centroids": ref["centroids"]}
-
-
-def control_verdict(pool, refs, settings, limits, device) -> dict:
+def control_verdict(kind, pool, refs, settings, limits, device) -> dict:
     """The bfloat16 reference in the program's place: the worst of each
     number, and whether every scan passes ``compare.judge``."""
-    ctrl = run.references(pool, refs, settings, device, torch.bfloat16)
+    ctrl = run.references(kind, pool, refs, settings, device,
+                          torch.bfloat16)
     rows = []
     for i, ref in refs.items():
-        prog = as_program(ctrl[i])
-        rows.append(compare.light(prog, ref))
-        rows.append(compare.heavy(prog, ref, device))
-    return {"worst": compare.worst(rows, list(compare.LIGHT)
-                                   + list(compare.HEAVY)),
+        light, heavy = kind.as_kept(ctrl[i])
+        rows.append(kind.light(light, ref))
+        rows.append(kind.heavy(heavy, ref, device))
+    return {"worst": compare.worst(rows, list(kind.LIGHT)
+                                   + list(kind.HEAVY)),
             "correct": all(compare.judge(r, limits) for r in rows)}
 
 
 def readings(cell, seed: int, seconds: float, device: str) -> dict:
     from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
-    settings = cell.config["pipeline"]
-    pool = traffic.make_pool(cell.config, cell.traffic, seed)
+    settings, kind = cell.config["pipeline"], cell.kind
+    pool = kind.make_pool(cell.config, cell.traffic, seed)
     pipe = Pipeline(run.pipeline_config(settings), device=device)
     sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
             else (lambda: None))
-    for pts in pool:
-        pipe.analyze(pts)
-    kept = run.Kept(seed)
+    for item in pool:
+        kind.call(pipe, item)
+    kept = run.Kept(seed, kind)
     win = run.closed_loop(pipe, pool, traffic.submissions(len(pool), seed),
                           seconds, kept, None, sync)
     del pipe
-    refs = run.references(pool, range(len(pool)), settings, device)
+    refs = run.references(kind, pool, range(len(pool)), settings, device)
     limits = cell.config["limits"]
     verdict = run.judge(pool, kept, settings, limits, device, refs)
-    ctrl = control_verdict(pool, refs, settings, limits, device)
+    ctrl = control_verdict(kind, pool, refs, settings, limits, device)
     return {"seed": seed, "scans": win["attempted"],
             "errors": win["errors"], "judged": verdict["judged"],
-            "people": [r["n_people"] for r in refs.values()],
-            "clustered": [r["clustered"] for r in refs.values()],
+            "people": [r.get("n_people") for r in refs.values()],
+            "clustered": [kind.clustered(r) for r in refs.values()],
             "program": verdict["worst"],
             "program_correct": not win["errors"] and not verdict["wrong"],
             "control": ctrl["worst"], "control_correct": ctrl["correct"]}

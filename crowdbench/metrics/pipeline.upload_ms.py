@@ -1,0 +1,13 @@
+"""pipeline.upload_ms: mean ms a scan inside the port's own
+``pipeline.upload`` spans (the float64 scan's copy to the device), read
+from the records of its tracing session in a traced run: a part of its
+own, synchronised as the spans' part is. Nothing where the port keeps no
+such records."""
+
+
+def read(run):
+    spans = [sp for scan in run.records for sp in scan.spans
+             if sp.name == "pipeline.upload"]
+    if not run.recorded or not spans:
+        return None
+    return 1e3 * sum(sp.seconds for sp in spans) / run.recorded

@@ -3,34 +3,43 @@
     python3 -m crowdbench.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-from the root of a checkout with a CUDA card. Set-up makes the cell's pool
-of scans from ``--seed``, builds ``Pipeline(config, device="cuda")`` (the
-first run in a checkout also builds the port's kernels into its
-``_build/``) and warms every scan of the pool twice. Then one closed-loop
-caller submits the pool's scans to ``Pipeline.analyze`` for ``--seconds``:
-the next scan when the last result has returned, the window closing when
-the first scan to end past ``--seconds`` has returned.
+from the root of a checkout with a CUDA card. What one call of a cell is
+comes from its kind (``kinds/<kind>.py``, ``spec.py``): for the kind
+``scan``, ``Pipeline.analyze`` of one scan, and a "scan" below is one
+call of the cell's kind. Set-up makes the cell's pool of scans from
+``--seed``, builds ``Pipeline(config, device="cuda")`` (the first run in a
+checkout also builds the port's kernels into its ``_build/``) and warms
+every scan of the pool twice. Then one closed-loop caller submits the
+pool's scans for ``--seconds``: the next scan when the last result has
+returned, the window closing when the first scan to end past
+``--seconds`` has returned.
 
-``--trace 0`` reports the end-to-end metrics: ``points_per_s`` (the points
-of every scan completed, over the window), ``scan_p95_ms`` (over every
-scan's latency, from the call to the returned dicts, the device
-synchronised) and ``setup_s`` (from the import of the package, the
-first thing a run does, to the window's start). ``--trace 1`` splits the window in three equal parts: the first
-runs as an untraced run does; in the second every span (``trace.py``)
-synchronises the device at its ends, and the ``*_ms`` metrics read it;
-the third runs under ``torch.profiler`` with no added synchronisation,
-the host recording the benchmark's ranges and no operator, and the
-device's idle share, the roofline and ``breakdown`` read its trace. Each
-part's mean scan time is printed, so the cost of the spans and of the
-profiler shows beside the untraced scans.
+``--trace 0`` reports the cell's end-to-end metrics, of
+``points_per_s`` (the points of every scan completed, over the window),
+``scan_p95_ms`` (over every scan's latency, from the call to the returned
+dicts, the device synchronised) and ``setup_s`` (from the import of the
+package, the first thing a run does, to the window's start): those that
+``BENCHMARK.json`` gives the cell. ``--trace 1`` splits the
+window in three equal parts: the first half of the first runs as an
+untraced run does, and its second half as the second part does, inside a
+session of the port's own tracer, whose span records and counters the
+readers find in ``TracedRun.records``; in the second part every span
+(``trace.py``) synchronises the device at its ends, and the ``*_ms``
+metrics read it; the third runs under ``torch.profiler`` with no added
+synchronisation, the host recording the benchmark's ranges and no
+operator, and the device's idle share, the roofline and ``breakdown`` read
+its trace. Each part's mean scan time is printed, so the cost of the
+spans, of the port's session and of the profiler shows beside the
+untraced scans.
 
 After the window, with the peak memory read and the program's state
-freed, the plain reference (``reference.py``) analyses each scan of the
-pool on the card in float64, and ``compare.py`` holds every scan of the
-window to it (the full arrays on a sample drawn from the seed). Each
-number compared is printed beside its limit as the last lines of standard
-error and under ``checks``, the last key of the result line, the last line
-of standard output.
+freed, the plain reference (for the kind ``scan``, ``reference.py``)
+answers each scan of the pool on the card in float64, and the kind's
+comparison (``compare.py``) holds every scan of the window to it (the full
+arrays on a sample drawn from the seed). Each number compared is printed
+beside its limit as the last lines of standard error and under
+``checks``, the last key of the result line, the last line of standard
+output.
 
 Exits non-zero, printing no result, without enough CUDA cards, when
 ``jax``, ``jaxlib``, ``flax`` or the JAX package is loaded once the window
@@ -50,13 +59,13 @@ import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
+from types import ModuleType
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from crowdbench import (START, compare, reference, roofline, spec,
-                        traffic)
+from crowdbench import START, compare, roofline, spec, traffic
 from crowdbench.trace import Spans, Trace, device_profile, instrument
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "lidar_ai_recommendation_software_tpu")
@@ -95,12 +104,14 @@ def pipeline_config(settings: Dict):
 
 
 class Kept:
-    """What the comparison needs of the scans of the window: the result
-    dicts of every scan, and the full arrays (centroids, density grid,
-    flow field) of ``HEAVY_PER_SCAN`` scans of each pool scan, a
-    reservoir sample drawn from the seed."""
+    """What the comparison needs of the scans of the window, as the kind
+    keeps it: the light part of every scan (for ``scan``, the result
+    dicts), and the heavy part (the centroids, density grid and flow
+    field) of ``HEAVY_PER_SCAN`` scans of each pool scan, a reservoir
+    sample drawn from the seed."""
 
-    def __init__(self, seed: int):
+    def __init__(self, seed: int, kind: ModuleType):
+        self.kind = kind
         self.rng = np.random.RandomState(int(traffic.seed_state(seed, 2)[1]))
         self.light: List[tuple] = []
         self.heavy: Dict[int, List[tuple]] = defaultdict(list)
@@ -112,15 +123,10 @@ class Kept:
         return self.scans - 1
 
     def add(self, scan_id: int, i: int, out: Dict) -> None:
-        d = {k: v for k, v in out["density"].items()
-             if k not in ("density_map", "density_grid")}
-        f = {k: v for k, v in out["flow"].items() if k != "flow_vectors"}
-        self.light.append((scan_id, i, {"density": d, "flow": f,
-                                        "recommendations":
-                                            out["recommendations"]}))
+        light, heavy = self.kind.keep(out)
+        self.light.append((scan_id, i, light))
         self.seen[i] += 1
-        item = (scan_id, {"people": out["people"],
-                          "density": out["density"], "flow": out["flow"]})
+        item = (scan_id, heavy)
         if len(self.heavy[i]) < HEAVY_PER_SCAN:
             self.heavy[i].append(item)
         else:
@@ -131,8 +137,10 @@ class Kept:
 
 def closed_loop(pipe, pool, order, seconds: float, kept: Kept,
                 spans: Optional[Spans], sync) -> Dict:
-    """One caller submitting scans for ``seconds``: latencies, points and
-    the window, errors kept by scan."""
+    """One caller submitting scans for ``seconds``, each one call of
+    ``kept``'s kind: latencies, points and the window, errors kept by
+    scan."""
+    kind = kept.kind
     lat, errors = [], []
     points, attempted = 0, 0
     start = time.perf_counter()
@@ -145,51 +153,49 @@ def closed_loop(pipe, pool, order, seconds: float, kept: Kept,
         try:
             with (spans.span("analyze") if spans else
                   contextlib.nullcontext()):
-                out = pipe.analyze(pool[i])
+                out = kind.call(pipe, pool[i])
                 sync()
         except Exception as exc:  # a failed scan counts, the loop goes on
             errors.append(f"scan {scan_id} (pool {i}): "
                           f"{type(exc).__name__}: {exc}")
             continue
         lat.append(time.perf_counter() - t0)
-        points += len(pool[i])
+        points += kind.points(pool[i])
         kept.add(scan_id, i, out)
         del out
     return {"latencies": lat, "points": points, "attempted": attempted,
             "errors": errors, "window_s": time.perf_counter() - start}
 
 
-def references(pool, indices, settings: Dict, device,
+def references(kind: ModuleType, pool, indices, settings: Dict, device,
                dtype=torch.float64) -> Dict[int, Dict]:
     """The reference's answer for each scan ``indices`` of the pool."""
-    return {i: reference.analyze(pool[i].astype(np.float32), settings,
-                                 dtype, device) for i in sorted(indices)}
+    return {i: kind.reference(pool[i], settings, dtype, device)
+            for i in sorted(indices)}
 
 
 def judge(pool, kept: Kept, settings: Dict, limits: Dict, device,
           refs: Optional[Dict[int, Dict]] = None) -> Dict:
     """The reference's answer for each scan of the pool that the window
-    analysed, and every kept result held to it."""
+    analysed, and every kept result held to it by ``kept``'s kind."""
+    kind = kept.kind
     if refs is None:
-        refs = references(pool, kept.seen, settings, device)
+        refs = references(kind, pool, kept.seen, settings, device)
     rows, wrong = [], set()
     for scan_id, i, res in kept.light:
-        nums = compare.light(res, refs[i])
+        nums = kind.light(res, refs[i])
         rows.append(nums)
         if not compare.judge(nums, limits):
             wrong.add(scan_id)
     for i, items in kept.heavy.items():
         for scan_id, res in items:
-            ppl = res["people"]
-            prog = dict(res, centroids=ppl.positions[ppl.mask].double()
-                        .cpu().numpy())
-            nums = compare.heavy(prog, refs[i], device)
+            nums = kind.heavy(res, refs[i], device)
             rows.append(nums)
             if not compare.judge(nums, limits):
                 wrong.add(scan_id)
-    names = list(compare.LIGHT) + list(compare.HEAVY)
+    names = list(kind.LIGHT) + list(kind.HEAVY)
     return {"worst": compare.worst(rows, names), "wrong": wrong,
-            "clustered": {i: r["clustered"] for i, r in refs.items()},
+            "clustered": {i: kind.clustered(r) for i, r in refs.items()},
             "judged": len(rows)}
 
 
@@ -217,6 +223,13 @@ class TracedRun:
     profiled: List[int]             # pool index of each profiled scan
     clustered: Dict[int, int]       # pool index -> clustered points
     peaks: Optional[Dict[str, float]]
+    # the port's span records and counters of the part that runs in its
+    # tracing session, a ``profiling.Scan`` a top-level span (none from a
+    # port without the session), and the scans of that part
+    records: List = dataclasses.field(default_factory=list)
+    recorded: int = 0
+    # the untraced part: its scans' points and its window's seconds
+    plain: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
@@ -228,14 +241,15 @@ def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     settings = cell.config["pipeline"]
-    pool = traffic.make_pool(cell.config, cell.traffic, seed)
+    kind = cell.kind
+    pool = kind.make_pool(cell.config, cell.traffic, seed)
     pipe = Pipeline(pipeline_config(settings), device=device)
     for _ in range(2):  # every scan's shapes, twice
-        for pts in pool:
-            pipe.analyze(pts)
+        for item in pool:
+            kind.call(pipe, item)
     sync()
     order = traffic.submissions(len(pool), seed)
-    kept = Kept(seed)
+    kept = Kept(seed, kind)
     setup_s = time.perf_counter() - t0
 
     profiled: List[int] = []
@@ -246,19 +260,27 @@ def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         parts = [win]
     else:
         part = seconds / 3
-        plain = closed_loop(pipe, pool, order, part, kept, None, sync)
-        with instrument(pipe, spans):
+        plain = closed_loop(pipe, pool, order, part / 2, kept, None, sync)
+        # the port's session costs each host read and span some us: it
+        # gets a part of its own, and the synchronised part stays clean
+        synced = Spans(sync=True)
+        with instrument(pipe, synced, kind.SPANS, record=True) as scans:
+            recorded = closed_loop(pipe, pool, order, part / 2, kept,
+                                   synced, sync)
+        records = list(scans or ())
+        with instrument(pipe, spans, kind.SPANS):
             timed = closed_loop(pipe, pool, order, part, kept, spans, sync)
         light_before = len(kept.light)
         quiet = Spans(sync=False)
-        with tempfile.TemporaryDirectory() as tmp, instrument(pipe, quiet):
+        with tempfile.TemporaryDirectory() as tmp, \
+                instrument(pipe, quiet, kind.SPANS):
             path = Path(tmp) / "trace.json"
             with device_profile(path, on_card):
                 traced = closed_loop(pipe, pool, order, part, kept, quiet,
                                      sync)
             tr = Trace.from_file(path)
         profiled = [i for _, i, _ in kept.light[light_before:]]
-        parts = [plain, timed, traced]
+        parts = [plain, recorded, timed, traced]
 
     memory_peak = torch.cuda.max_memory_allocated() if on_card else 0
     del pipe
@@ -277,13 +299,13 @@ def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     units = {m["name"]: m["unit"] for m in cell.end_to_end + cell.per_layer}
     metrics: Dict[str, Dict] = {}
     card = card_info() if on_card else {"name": "cpu", "power_limit": "none"}
-    kind = torch.cuda.get_device_name() if on_card else "cpu"
-    dev = {"platform": "gpu" if on_card else "cpu", "kind": kind,
+    card_kind = torch.cuda.get_device_name() if on_card else "cpu"
+    dev = {"platform": "gpu" if on_card else "cpu", "kind": card_kind,
            "count": cell.chips, "memory_peak_bytes": int(memory_peak)}
-    info = [f"card: {kind}, power limit {card['power_limit']}",
+    info = [f"card: {card_kind}, power limit {card['power_limit']}",
             f"scans: {attempted} attempted, {failed} failed, "
             f"{verdict['judged']} judged; pool {len(pool)} x "
-            f"{len(pool[0]):,} points; seed {seed}"]
+            f"{kind.points(pool[0]):,} points; seed {seed}"]
     result = {"correct": bool(correct), "attempted": attempted,
               "failed": failed, "metrics": metrics, "device": dev}
     if not trace:
@@ -292,6 +314,7 @@ def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                   "scan_p95_ms": (1e3 * percentile(win["latencies"], 95)
                                   if win["latencies"] else None),
                   "setup_s": setup_s}
+        values = {k: v for k, v in values.items() if k in units}
         lat_ms = sorted(1e3 * x for x in win["latencies"])
         info.append(f"window: {win['window_s']:.3f} s, "
                     f"{len(lat_ms)} scans completed; latency ms min "
@@ -300,10 +323,13 @@ def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                     f"{lat_ms[-1]:.3f}" if lat_ms else "no scan completed")
     else:
         run = TracedRun(spans=dict(spans.seconds),
-                        scans=len(parts[1]["latencies"]), trace=tr,
+                        scans=len(timed["latencies"]), trace=tr,
                         profiled=profiled, clustered=verdict["clustered"],
-                        peaks=roofline.peaks(kind))
-        values = {m["name"]: spec.metric_reader(m["name"])(run)
+                        peaks=roofline.peaks(card_kind), records=records,
+                        recorded=len(recorded["latencies"]),
+                        plain={"points": plain["points"],
+                               "window_s": plain["window_s"]})
+        values = {m["name"]: spec.metric_reader(m["name"], cell.root)(run)
                   for m in cell.per_layer}
         if tr is not None and on_card and tr.window_s() > 0:
             dev["busy_s"] = tr.busy_s()
@@ -317,9 +343,11 @@ def bench(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         means = [1e3 * sum(p["latencies"]) / len(p["latencies"])
                  if p["latencies"] else float("nan") for p in parts]
         info.append(f"mean scan ms: {means[0]:.3f} untraced, "
-                    f"{means[1]:.3f} with synchronised spans, "
-                    f"{means[2]:.3f} profiled")
-        info.append(f"traced: {run.scans} scans synchronised "
+                    f"{means[1]:.3f} with synchronised spans and the "
+                    f"port's session, {means[2]:.3f} with synchronised "
+                    f"spans, {means[3]:.3f} profiled")
+        info.append(f"traced: {run.recorded} scans recorded, "
+                    f"{run.scans} scans synchronised "
                     f"({calls:.3f} analyze_device calls a scan), "
                     f"{len(profiled)} profiled; rooflines against "
                     f"published peaks at 700 W, this card's limit "

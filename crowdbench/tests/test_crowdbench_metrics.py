@@ -34,8 +34,8 @@ def test_points_over_the_window(monkeypatch):
     pipe = _Clock(monkeypatch)
     pool = [np.zeros((1000, 3)), np.zeros((3000, 3))]
     order = iter([0, 1] * 10)
-    win = run.closed_loop(pipe, pool, order, 1.1, run.Kept(1), None,
-                          lambda: None)
+    kept = run.Kept(1, spec.load_kind("scan"))
+    win = run.closed_loop(pipe, pool, order, 1.1, kept, None, lambda: None)
     # five scans: the fifth starts at 1.0 s, before the end, and ends past
     # it; the window closes with it
     assert win["attempted"] == 5
@@ -129,3 +129,13 @@ def test_span_readers_take_means_a_scan():
         assert spec.metric_reader(name)(r) == pytest.approx(value), name
         assert spec.metric_reader(name)(
             run.TracedRun({}, 0, None, [], {}, None)) is None
+
+
+def test_loop_rate_reads_the_untraced_part():
+    read = spec.metric_reader("loop.points_per_s")
+    r = run.TracedRun({}, 0, None, [], {}, None,
+                      plain={"points": 3_000_000, "window_s": 2.0})
+    assert read(r) == pytest.approx(1_500_000.0)
+    assert read(run.TracedRun({}, 0, None, [], {}, None)) is None
+    assert read(run.TracedRun({}, 0, None, [], {}, None,
+                              plain={"points": 0, "window_s": 2.0})) is None

@@ -54,6 +54,16 @@ def test_traced_run_reads_the_span_metrics():
     assert "device.idle_pct" not in result["metrics"]
 
 
+def test_venue_cells_report_the_rate_per_layer():
+    cell = small_cell("venue_scan_1m.sensor_order")
+    result, _ = drive(cell)
+    assert result["correct"] is True
+    assert set(result["metrics"]) == {"scan_p95_ms", "setup_s"}
+    result, _ = drive(cell, trace=True)
+    assert result["correct"] is True
+    assert result["metrics"]["loop.points_per_s"]["value"] > 0
+
+
 def test_run_without_a_card_fails():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run(
@@ -114,7 +124,7 @@ def test_reference_agrees_with_the_port_on_the_cpu(order):
     pipe = Pipeline(run.pipeline_config(settings), device="cpu")
     for pts in pool:
         out = pipe.analyze(pts)
-        ref = run.references([pts], [0], settings, "cpu")[0]
+        ref = run.references(cell.kind, [pts], [0], settings, "cpu")[0]
         prog = {"density": out["density"], "flow": out["flow"],
                 "recommendations": out["recommendations"],
                 "centroids": out["people"].positions[out["people"].mask]
@@ -135,8 +145,8 @@ def test_control_fails(seed):
     cell = small_cell(pool=1)
     settings = cell.config["pipeline"]
     pool = traffic.make_pool(cell.config, cell.traffic, seed)
-    refs = run.references(pool, [0], settings, "cpu")
-    verdict = control.control_verdict(pool, refs, settings,
+    refs = run.references(cell.kind, pool, [0], settings, "cpu")
+    verdict = control.control_verdict(cell.kind, pool, refs, settings,
                                       cell.config["limits"], "cpu")
     assert verdict["correct"] is False
     assert not compare.judge(verdict["worst"], cell.config["limits"])

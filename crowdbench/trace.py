@@ -13,20 +13,25 @@ benchmark's own files, and the reading of ``torch.profiler``'s trace.
   analyze_density ``models.density.analyze_density`` density
   analyze_flow    ``models.flow.analyze_flow``      flow
 
-and the benchmark's loop adds ``analyze`` around each call. Each span is
-a ``record_function`` range named ``bench.<name>``; with ``sync`` its
+with the entry points the cell's kind names in its ``SPANS``, and the
+benchmark's loop adds ``analyze`` around each call. Each span is a
+``record_function`` range named ``bench.<name>``; with ``sync`` its
 host-clock seconds are kept and the device is synchronised at both of its
-ends, so a span holds its own device work and no other's.
+ends, so a span holds its own device work and no other's. With
+``record``, the block also runs in a session of the port's own tracer
+(``utils.profiling.tracing``), whose span records and counters the block
+yields; a port without that tracer yields none.
 """
 
 from __future__ import annotations
 
 import bisect
 import contextlib
+import importlib
 import json
 import time
 from collections import defaultdict
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -63,31 +68,44 @@ class Spans:
 
 
 @contextlib.contextmanager
-def instrument(pipe, spans: Spans):
+def instrument(pipe, spans: Spans,
+               extra: Sequence[Tuple[str, str, str]] = (),
+               record: bool = False):
     """Wrap the layers' entry points of ``pipe`` in ``spans`` (module and
-    instance attributes, restored on exit)."""
+    instance attributes, restored on exit), and each (module, attribute,
+    span name) of ``extra``. Yields the records (``Recorder.scans``) of
+    the port's tracing session that the block runs in with ``record``,
+    else None."""
     from lidar_ai_recommendation_software_tpu_torch import pipeline
     from lidar_ai_recommendation_software_tpu_torch import types as ptypes
     from lidar_ai_recommendation_software_tpu_torch.models import (
         density, flow)
     from lidar_ai_recommendation_software_tpu_torch.ops import clustering
+    from lidar_ai_recommendation_software_tpu_torch.utils import profiling
 
-    patches = [(pipeline, "preprocess"), (clustering, "dbscan_labels"),
-               (density, "extract_people"), (density, "analyze_density"),
-               (flow, "analyze_flow")]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in patches]
+    patches = [(pipeline, "preprocess", "preprocess"),
+               (clustering, "dbscan_labels", "dbscan_labels"),
+               (density, "extract_people", "extract_people"),
+               (density, "analyze_density", "analyze_density"),
+               (flow, "analyze_flow", "analyze_flow")]
+    patches += [(importlib.import_module(mod), attr, name)
+                for mod, attr, name in extra]
+    saved = [(mod, attr, name, getattr(mod, attr))
+             for mod, attr, name in patches]
     from_numpy = ptypes.PointCloud.__dict__["from_numpy"]
+    tracing = getattr(profiling, "tracing", None) if record else None
     try:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, spans.wrap(attr, fn))
+        for mod, attr, name, fn in saved:
+            setattr(mod, attr, spans.wrap(name, fn))
         ptypes.PointCloud.from_numpy = staticmethod(
             spans.wrap("from_numpy", ptypes.PointCloud.from_numpy))
         pipe.fit_capacity = spans.wrap("fit_capacity", pipe.fit_capacity)
         pipe.analyze_device = spans.wrap("analyze_device",
                                          pipe.analyze_device)
-        yield spans
+        with (tracing() if tracing else contextlib.nullcontext()) as rec:
+            yield None if rec is None else rec.scans
     finally:
-        for mod, attr, fn in saved:
+        for mod, attr, _, fn in reversed(saved):
             setattr(mod, attr, fn)
         ptypes.PointCloud.from_numpy = from_numpy
         del pipe.fit_capacity, pipe.analyze_device
