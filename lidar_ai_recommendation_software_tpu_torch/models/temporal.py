@@ -24,6 +24,13 @@ package are kept on purpose, so that both packages give the same answer:
 
 The node accumulation is a masked sum over (nodes, people), taken in
 chunks of nodes; its float32 sums run in another order than XLA's.
+
+``temporal_flow_multi`` records its stages as ``utils.profiling`` spans:
+``temporal.flow`` around the call, and inside it ``temporal.match``,
+``temporal.consistency``, ``temporal.nodes`` and ``temporal.bottlenecks``.
+The counter ``temporal.pair_tests`` adds the pair tests of the all-pairs
+formulation, from the shapes alone: (T - 1) K^2 in ``temporal.match`` and
+(T - 1) nodes K in ``temporal.nodes``. No span reads the device.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
     PAIRS_PER_CHUNK)
 from lidar_ai_recommendation_software_tpu_torch.types import (
     FlowResults, People)
+from lidar_ai_recommendation_software_tpu_torch.utils import profiling
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
 
 
 def _squared_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -113,6 +122,34 @@ def stack_people(frames: List[People]) -> People:
                     for f in ("positions", "mask", "z", "overflow")))
 
 
+def accumulate_samples(nodes: torch.Tensor, g2: torch.Tensor,
+                       positions: torch.Tensor,
+                       pairs: List[Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]],
+                       keeps: List[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every kept sample of every pair onto the ``nodes`` (G, 2) within
+    ``g2`` (the squared grid step) of it: the velocity sums (G, 2) and the
+    sample counts (G,) int32. Pair t's velocities sit at frame t + 1's
+    ``positions``; the (nodes, people) tests run in chunks of nodes of
+    about ``PAIRS_PER_CHUNK`` pairs."""
+    k = positions.shape[1]
+    wsum = torch.zeros((nodes.shape[0], 2), dtype=positions.dtype,
+                       device=positions.device)
+    cnt = torch.zeros(nodes.shape[0], dtype=torch.int32,
+                      device=positions.device)
+    chunk = max(1, PAIRS_PER_CHUNK // max(k, 1))
+    for t, ((_, _, vel), keep) in enumerate(zip(pairs, keeps)):
+        curr_pos = positions[t + 1]
+        for s in range(0, nodes.shape[0], chunk):
+            near = ((_squared_distances(nodes[s:s + chunk], curr_pos) <= g2)
+                    & keep[None, :])
+            wsum[s:s + chunk] += torch.where(near[..., None], vel[None],
+                                             0.0).sum(1)
+            cnt[s:s + chunk] += near.sum(1, dtype=torch.int32)
+    return wsum, cnt
+
+
 def temporal_flow_multi(people_seq: People, dt, mins: torch.Tensor,
                         maxs: torch.Tensor,
                         config: PipelineConfig) -> FlowResults:
@@ -123,6 +160,16 @@ def temporal_flow_multi(people_seq: People, dt, mins: torch.Tensor,
     sampled around the later frame's positions; a node's vector is the
     mean over every surviving sample of every pair. Nodes with no sample
     carry zero vectors and stay out of the statistics."""
+    cap = config.capacity
+    n_frames, k = people_seq.positions.shape[:2]
+    with stage("temporal.flow", frames=n_frames, slots=k,
+               nodes=cap.grid_cells_x * cap.grid_cells_y):
+        return _temporal_flow_multi(people_seq, dt, mins, maxs, config)
+
+
+def _temporal_flow_multi(people_seq: People, dt, mins: torch.Tensor,
+                         maxs: torch.Tensor,
+                         config: PipelineConfig) -> FlowResults:
     fc = config.flow
     cap = config.capacity
     pos = people_seq.positions
@@ -145,96 +192,93 @@ def temporal_flow_multi(people_seq: People, dt, mins: torch.Tensor,
 
     # per pair t (frames t -> t + 1): matches and velocities, indexed by
     # frame t + 1's people
-    max_dist = torch.tensor(fc.track_max_speed, dtype=torch.float32,
-                            device=dev) * dt_t
-    pairs = []
-    for t in range(n_frames - 1):
-        prev, curr = _frame(people_seq, t), _frame(people_seq, t + 1)
-        idx, ok = match_people(prev, curr, max_dist)
-        vel = (curr.positions - prev.positions[idx.to(torch.int64)]) / dt_t
-        pairs.append((idx.to(torch.int64), ok,
-                      torch.where(ok[:, None], vel, 0.0)))
+    with stage("temporal.match"):
+        profiling.count("temporal.pair_tests", (n_frames - 1) * k * k)
+        max_dist = torch.tensor(fc.track_max_speed, dtype=torch.float32,
+                                device=dev) * dt_t
+        pairs = []
+        for t in range(n_frames - 1):
+            prev, curr = _frame(people_seq, t), _frame(people_seq, t + 1)
+            idx, ok = match_people(prev, curr, max_dist)
+            vel = ((curr.positions - prev.positions[idx.to(torch.int64)])
+                   / dt_t)
+            pairs.append((idx.to(torch.int64), ok,
+                          torch.where(ok[:, None], vel, 0.0)))
 
     # three frames or more: keep a sample only where it agrees, within
     # track_consistency_tol, with the same person's velocity in the pair
     # before or after (merges and splits swap identities and leave
     # outliers that a mutual-nearest check cannot see)
-    tol2 = torch.tensor(np.float32(fc.track_consistency_tol), device=dev) ** 2
-    keeps = []
-    for t, (idx, ok, vel) in enumerate(pairs):
-        if n_frames < 3:
-            keeps.append(ok)
-            continue
-        with_prev = torch.zeros(k, dtype=torch.bool, device=dev)
-        if t > 0:
-            _, ok_p, vel_p = pairs[t - 1]
-            pv, p_ok = vel_p[idx], ok_p[idx]
-            dv = vel - pv
-            with_prev = ok & p_ok & (dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
-                                     <= tol2)
-        with_next = torch.zeros(k, dtype=torch.bool, device=dev)
-        if t < len(pairs) - 1:
-            idx_n, ok_n, vel_n = pairs[t + 1]
-            # pair t + 1's map inverted: frame t + 1 person j -> its
-            # velocity in pair t + 1, the last row to name j winning
-            last = _last_writer(idx_n, k)
-            has = last >= 0
-            src = last.clamp_min(0)
-            nv = torch.where(has[:, None],
-                             torch.where(ok_n[:, None], vel_n, 0.0)[src], 0.0)
-            n_ok = has & ok_n[src]
-            dv = vel - nv
-            with_next = ok & n_ok & (dv[:, 0] * dv[:, 0] + dv[:, 1] * dv[:, 1]
-                                     <= tol2)
-        keeps.append(ok & (with_prev | with_next))
+    with stage("temporal.consistency"):
+        tol2 = torch.tensor(np.float32(fc.track_consistency_tol),
+                            device=dev) ** 2
+        keeps = []
+        for t, (idx, ok, vel) in enumerate(pairs):
+            if n_frames < 3:
+                keeps.append(ok)
+                continue
+            with_prev = torch.zeros(k, dtype=torch.bool, device=dev)
+            if t > 0:
+                _, ok_p, vel_p = pairs[t - 1]
+                pv, p_ok = vel_p[idx], ok_p[idx]
+                dv = vel - pv
+                with_prev = ok & p_ok & (dv[:, 0] * dv[:, 0]
+                                         + dv[:, 1] * dv[:, 1] <= tol2)
+            with_next = torch.zeros(k, dtype=torch.bool, device=dev)
+            if t < len(pairs) - 1:
+                idx_n, ok_n, vel_n = pairs[t + 1]
+                # pair t + 1's map inverted: frame t + 1 person j -> its
+                # velocity in pair t + 1, the last row to name j winning
+                last = _last_writer(idx_n, k)
+                has = last >= 0
+                src = last.clamp_min(0)
+                nv = torch.where(
+                    has[:, None],
+                    torch.where(ok_n[:, None], vel_n, 0.0)[src], 0.0)
+                n_ok = has & ok_n[src]
+                dv = vel - nv
+                with_next = ok & n_ok & (dv[:, 0] * dv[:, 0]
+                                         + dv[:, 1] * dv[:, 1] <= tol2)
+            keeps.append(ok & (with_prev | with_next))
 
     # every surviving sample onto the nodes within one grid step of it
-    g2 = g * g
-    wsum = torch.zeros((nodes.shape[0], 2), dtype=dtype, device=dev)
-    cnt = torch.zeros(nodes.shape[0], dtype=torch.int32, device=dev)
-    chunk = max(1, PAIRS_PER_CHUNK // max(k, 1))
-    for t in range(n_frames - 1):
-        vel, keep = pairs[t][2], keeps[t]
-        curr_pos = pos[t + 1]
-        for s in range(0, nodes.shape[0], chunk):
-            near = ((_squared_distances(nodes[s:s + chunk], curr_pos) <= g2)
-                    & keep[None, :])
-            wsum[s:s + chunk] += torch.where(near[..., None], vel[None],
-                                             0.0).sum(1)
-            cnt[s:s + chunk] += near.sum(1, dtype=torch.int32)
+    with stage("temporal.nodes"):
+        profiling.count("temporal.pair_tests",
+                        (n_frames - 1) * nodes.shape[0] * k)
+        wsum, cnt = accumulate_samples(nodes, g * g, pos, pairs, keeps)
+        vectors = (wsum / cnt.clamp_min(1)[:, None]).reshape(gx, gy, 2)
+        occupied = (cnt > 0).reshape(gx, gy) & valid
+        vectors = torch.where(occupied[..., None], vectors, 0.0)
+        mags = torch.sqrt(vectors[..., 0] * vectors[..., 0]
+                          + vectors[..., 1] * vectors[..., 1])
 
-    vectors = (wsum / cnt.clamp_min(1)[:, None]).reshape(gx, gy, 2)
-    occupied = (cnt > 0).reshape(gx, gy) & valid
-    vectors = torch.where(occupied[..., None], vectors, 0.0)
-    mags = torch.sqrt(vectors[..., 0] * vectors[..., 0]
-                      + vectors[..., 1] * vectors[..., 1])
+        ocount = occupied.sum(dtype=torch.int32).clamp_min(1)
+        avg_speed = torch.where(occupied, mags, 0.0).sum() / ocount
+        mean_vec = torch.where(occupied[..., None], vectors, 0.0).sum(
+            dim=(0, 1)) / ocount
 
-    ocount = occupied.sum(dtype=torch.int32).clamp_min(1)
-    avg_speed = torch.where(occupied, mags, 0.0).sum() / ocount
-    mean_vec = torch.where(occupied[..., None], vectors, 0.0).sum(
-        dim=(0, 1)) / ocount
-
-    # bottlenecks: slow occupied nodes next to faster flow, by the
-    # monolith's stencil on the measured field; ties keep the lattice's
-    # y-major scan order, as the JAX package's top_k
-    sev, ok_b = _bottlenecks_monolith(mags, occupied, config)
-    fx = px.T.reshape(-1)
-    fy = py.T.reshape(-1)
-    scores = torch.where(ok_b.T.reshape(-1), sev.T.reshape(-1), -1)
-    top_v, top_i = torch.sort(scores, descending=True, stable=True)
-    top_v = top_v[:fc.max_bottlenecks]
-    top_i = top_i[:fc.max_bottlenecks]
-    bmask = top_v >= 0
-    return FlowResults(
-        positions=torch.stack([fx, fy], dim=1),
-        vectors=vectors.transpose(0, 1).reshape(-1, 2),
-        magnitudes=mags.T.reshape(-1),
-        node_mask=occupied.T.reshape(-1),
-        avg_speed=avg_speed,
-        mean_vector=mean_vec,
-        bottleneck_xy=torch.stack([fx[top_i], fy[top_i]], dim=1),
-        bottleneck_severity=torch.where(bmask, top_v, 0),
-        bottleneck_mask=bmask)
+    with stage("temporal.bottlenecks"):
+        # bottlenecks: slow occupied nodes next to faster flow, by the
+        # monolith's stencil on the measured field; ties keep the
+        # lattice's y-major scan order, as the JAX package's top_k
+        sev, ok_b = _bottlenecks_monolith(mags, occupied, config)
+        fx = px.T.reshape(-1)
+        fy = py.T.reshape(-1)
+        scores = torch.where(ok_b.T.reshape(-1), sev.T.reshape(-1), -1)
+        top_v, top_i = torch.sort(scores, descending=True, stable=True)
+        top_v = top_v[:fc.max_bottlenecks]
+        top_i = top_i[:fc.max_bottlenecks]
+        bmask = top_v >= 0
+        return FlowResults(
+            positions=torch.stack([fx, fy], dim=1),
+            vectors=vectors.transpose(0, 1).reshape(-1, 2),
+            magnitudes=mags.T.reshape(-1),
+            node_mask=occupied.T.reshape(-1),
+            avg_speed=avg_speed,
+            mean_vector=mean_vec,
+            bottleneck_xy=torch.stack([fx[top_i], fy[top_i]], dim=1),
+            bottleneck_severity=torch.where(bmask, top_v, 0),
+            bottleneck_mask=bmask)
 
 
 def temporal_flow(prev: People, curr: People, dt, mins: torch.Tensor,

@@ -387,17 +387,31 @@ class Pipeline:
 
         The last frame takes the one full ``analyze``; every frame takes
         ``people_of_cloud`` under one capacity config fitted to the
-        largest frame (the last frame's people from its ``analyze`` when
-        their capacity is that config's), with ``analyze``'s overflow
-        guards. Only person-like clusters (``flow.track_min_height`` above
-        the floor) are tracked. ``tracked_people`` in the result holds
-        them, (T, K, ...).
+        largest frame on the pipeline's device (the last frame's people
+        from its ``analyze`` when their capacity is that config's), with
+        ``analyze``'s overflow guards. Only person-like clusters
+        (``flow.track_min_height`` above the floor) are tracked.
+        ``tracked_people`` in the result holds them, (T, K, ...).
 
         Where a frame's clusters outgrow the config's people capacity,
         every frame is extracted again under the grown config: all frames'
         people have one capacity, and the flow is what the JAX package
         computes when it fits that config first (its own
-        ``analyze_sequence`` fails to stack frames of two capacities)."""
+        ``analyze_sequence`` fails to stack frames of two capacities).
+
+        One call is one ``pipeline.sequence`` span (``frames``,
+        ``points``), the root of its scan in a ``profiling.tracing()``
+        session: the last frame's ``pipeline.analyze`` inside it, then
+        ``sequence.fit`` (``device``: the largest frame's upload and
+        fit), a ``sequence.frame`` (``t``) for each earlier frame's upload
+        and extraction, with the counter ``sequence.restarts`` where a
+        frame's people outgrow the capacity, and ``temporal.flow``."""
+        with stage("pipeline.sequence", frames=len(frames),
+                   points=sum(len(f) for f in frames)):
+            return self._analyze_sequence(frames, dt)
+
+    def _analyze_sequence(self, frames: Sequence[np.ndarray],
+                          dt: float) -> Dict:
         if len(frames) < 2:
             return self.analyze(frames[0])
         out = self.analyze(frames[-1])
@@ -410,9 +424,13 @@ class Pipeline:
             return PointCloud.from_numpy(pts, c.capacity.max_points,
                                          device=self.device)
 
-        cfg = self.fit_capacity(
-            np.asarray(frames[int(np.argmax([len(f) for f in frames]))],
-                       dtype=np.float64)[:, :3] - offset)
+        # the largest frame is measured where the points go, as ``_ingest``
+        # measures a scan: torch's CPU operators stall on a busy host
+        largest = frames[int(np.argmax([len(f) for f in frames]))]
+        with stage("sequence.fit", device=self.device.type):
+            cfg = self.fit_capacity(torch.from_numpy(np.ascontiguousarray(
+                np.asarray(largest, dtype=np.float64)[:, :3] - offset)
+            ).to(self.device))
         tracked: List[People] = []
         t = 0
         while t < len(frames):
@@ -420,10 +438,13 @@ class Pipeline:
                     == cfg.capacity.max_people):
                 proc, ppl = processed, out["people"]
             else:
-                (proc, ppl), grown = self._run_exact(
-                    people_of_cloud, cloud_of(frames[t], cfg), cfg)
-                restart = (grown.capacity.max_people
-                           != cfg.capacity.max_people)
+                with stage("sequence.frame", t=t):
+                    (proc, ppl), grown = self._run_exact(
+                        people_of_cloud, cloud_of(frames[t], cfg), cfg)
+                    restart = (grown.capacity.max_people
+                               != cfg.capacity.max_people)
+                    if restart:
+                        profiling.count("sequence.restarts")
                 cfg = grown
                 if restart:  # every frame again, under the grown config
                     tracked, t = [], 0

@@ -20,7 +20,7 @@ import torch
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
-    sample_venue, scaled_venue)
+    sample_venue, scaled_venue, venue_sequence)
 from lidar_ai_recommendation_software_tpu_torch.utils import profiling
 from port_helpers import UTM_SHIFT
 
@@ -158,6 +158,49 @@ def test_results_are_bit_equal_with_a_session(pipe, venue):
     with profiling.tracing():
         traced = pipe.analyze(venue)
     _same(plain, traced)
+
+
+TEMPORAL_SPANS = ["temporal.flow", "temporal.match", "temporal.consistency",
+                  "temporal.nodes", "temporal.bottlenecks"]
+
+
+def test_one_sequence_is_one_scan_and_its_results_do_not_change():
+    frames = venue_sequence(n_frames=3, n_points=5000, n_people=30,
+                            extent=12.0, seed=5)
+    seq_pipe = Pipeline(device="cpu")
+    plain = seq_pipe.analyze_sequence(frames, dt=0.5)
+    with profiling.tracing() as rec:
+        traced = seq_pipe.analyze_sequence(frames, dt=0.5)
+    _same(plain, traced)
+    for f in ("positions", "mask", "z"):
+        assert torch.equal(getattr(plain["tracked_people"], f),
+                           getattr(traced["tracked_people"], f))
+
+    (scan,) = rec.scans
+    names = [sp.name for sp in scan.spans]
+    root = scan.spans[0]
+    assert root.name == "pipeline.sequence" and root.parent is None
+    assert root.attrs == {"frames": 3, "points": 15_000}
+    top = [sp.name for sp in scan.spans if sp.parent == 0]
+    assert top == ["pipeline.analyze", "sequence.fit", "sequence.frame",
+                   "sequence.frame", "temporal.flow"]
+    assert [sp.attrs for sp in scan.spans
+            if sp.name == "sequence.frame"] == [{"t": 0}, {"t": 1}]
+    (fit,) = [sp for sp in scan.spans if sp.name == "sequence.fit"]
+    assert fit.attrs == {"device": "cpu"}
+    flow = names.index("temporal.flow")
+    assert names[flow:] == TEMPORAL_SPANS
+    assert all(scan.spans[i].parent == flow
+               for i in range(flow + 1, len(names)))
+    # the pair tests of the all-pairs formulation, from the shapes
+    attrs = scan.spans[flow].attrs
+    k = traced["tracked_people"].positions.shape[1]
+    cap = seq_pipe.fit_capacity(frames[-1]).capacity
+    assert attrs == {"frames": 3, "slots": k,
+                     "nodes": cap.grid_cells_x * cap.grid_cells_y}
+    assert scan.counters() == {
+        "temporal.pair_tests": 2 * k * k + 2 * attrs["nodes"] * k}
+    assert "sequence.restarts" not in scan.counters()
 
 
 def test_the_ring_keeps_the_last_scans(monkeypatch):
