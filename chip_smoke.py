@@ -12,7 +12,10 @@ Run from the root of a checkout. It
      (integers bit-equal) and times both with CUDA events, and the kernel
      also replayed from a CUDA graph (the device's time without the
      wrapper's host cost): ``radius_count`` at the pipeline's three shapes
-     (one kernel a call in a captured CUDA graph) and edge cases, the six
+     (one kernel a call in a captured CUDA graph) and edge cases,
+     ``eps_edges`` on ``synthetic.eps_edges_cases`` and at the sensor
+     frame's 32,768 and the modular variant's 131,072 clustering buffers
+     (the count and the fill kernel once a call), the six
      column-table kernels of the venue-scale clustering at the 262,144-,
      1M- and 3M-point scans' shapes and the temporal sequence's
      100,000-point frame, and on edge cases (an empty table, a
@@ -149,6 +152,9 @@ KERNELS = {
                     f"{JAX_PKG}/ops/pallas/kernels.py:410"),
     "sa_mlp_pool": (f"{PORT}/csrc/sa_mlp_pool.cu",
                     f"{JAX_PKG}/ops/pallas/kernels.py:166"),
+    # no pallas_call: the all-pairs pass of dbscan_bruteforce, tiled jnp
+    "eps_edges": (f"{PORT}/csrc/eps_edges.cu",
+                  f"none ({JAX_PKG}/ops/clustering.py:54-96, tiled jnp)"),
 }
 # the kernels every column-grid clustering launches
 COLUMN_KERNELS = tuple(KERNELS)[1:6]
@@ -157,6 +163,9 @@ COLUMN_KERNELS = tuple(KERNELS)[1:6]
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# FP32 instructions a second outside the tensor cores (the 67 TFLOP/s count
+# a fused multiply-add as two): the rate of work that cannot fuse
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
 
 # seed-42 fixture, monolith (the CPU oracle's values)
 GOLDEN = {"people": 446, "max_density": 3.5, "avg_density": 0.4958,
@@ -643,6 +652,123 @@ def run_radius_checks(dev) -> dict:
             out = {"max_abs_err": max_err, "ms": ms, "graph_ms": dev_ms,
                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
     return out
+
+
+# ---------------------------------------------------------------------------
+# eps_edges
+# ---------------------------------------------------------------------------
+
+# the sensor_frame_40k deployment: one 40,960-point frame of the venue
+# recipe at the reference fixture's 5.56 people per 100 m^2, whose
+# clustering buffer is the all-pairs backend's largest, 32,768; and a venue
+# whose non-ground points fill the modular variant's 131,072 buffer but for
+# a padded tail
+SENSOR_FRAME = (40_960, 5.56)
+MODULAR_VENUE = 185_000
+
+
+def clustering_buffer(pipe, cloud) -> tuple:
+    """(points, mask, eps) that ``pipe.analyze(cloud)`` hands to
+    ``eps_edges``: the clustering buffer, as the pipeline builds it."""
+    from lidar_ai_recommendation_software_tpu_torch.ops import clustering
+    seen = []
+    real = clustering.eps_edges
+
+    def keep(points, mask, eps):
+        seen.append((points.clone(), mask.clone(), eps))
+        return real(points, mask, eps)
+
+    clustering.eps_edges = keep
+    try:
+        pipe.analyze(cloud)
+    finally:
+        clustering.eps_edges = real
+    require(len(seen) == 1, f"{len(seen)} all-pairs clusterings, one "
+            f"expected")
+    return seen[0]
+
+
+def run_eps_checks(dev) -> dict:
+    """``eps_edges`` against its plain version, bit for bit, on
+    ``synthetic.eps_edges_cases`` and at the pipeline's two all-pairs
+    buffers; the kernels one call launches; times at both buffers."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch import (
+        MODULAR_CONFIG, scaled_venue)
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
+        eps, kernels)
+    from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
+    from lidar_ai_recommendation_software_tpu_torch.synthetic import (
+        eps_edges_cases)
+    from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
+        eps_edges_work)
+
+    def same(name, p, m, e):
+        kernels.reset_launch_counts()
+        got = eps.eps_edges(p, m, e)
+        torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["eps_edges"]
+        want = eps.eps_edges_reference(p, m, e)
+        print(f"eps_edges {name}: {p.shape[0]} points, "
+              f"{int(m.sum())} valid, eps {e}, {want[1].numel()} edges, "
+              f"{launched} launches")
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1]),
+                f"eps_edges differs from its plain version: {name}")
+        require(launched == (eps.EPS_LAUNCHES if want[1].numel() else 1),
+                f"eps_edges {name}: {launched} launches")
+        return got
+
+    for name, pts, mask, e in eps_edges_cases():
+        same(name, torch.from_numpy(pts).to(dev),
+             torch.from_numpy(mask).to(dev), e)
+
+    n_frame, people = SENSOR_FRAME
+    frame = clustering_buffer(Pipeline(device="cuda"),
+                              scaled_venue(n_frame,
+                                           people_per_100m2=people))
+    modular = clustering_buffer(Pipeline(MODULAR_CONFIG, device="cuda"),
+                                scaled_venue(MODULAR_VENUE,
+                                             people_per_100m2=people))
+    times = []
+    for name, (p, m, e) in ((f"{n_frame:,}-point sensor frame", frame),
+                            (f"modular {MODULAR_VENUE:,}-point venue",
+                             modular)):
+        name = f"{name}, buffer {p.shape[0]:,}"
+        total = same(name, p, m, e)[1].numel()
+        plan = eps.eps_plan(p.shape[0])
+
+        def passes():
+            return eps._fill_pass(p, m, e, plan,
+                                  *eps._count_pass(p, m, e, plan), total)
+
+        seen = device_kernels(passes)
+        print(f"eps_edges {name}: kernels of one call, its read left out "
+              f"{seen}")
+        require(sum(v for k, v in seen.items() if "eps_kernel" in k) == 2
+                and len([k for k in seen if "eps_kernel" in k]) == 2,
+                f"eps_edges launches the count and the fill once: {seen}")
+        ms = cuda_ms(lambda: eps.eps_edges(p, m, e))
+        dev_ms = graph_ms(passes)
+        plain = cuda_ms(lambda: eps.eps_edges_reference(p, m, e), iters=3,
+                        warm=1)
+        valid = int(m.sum())
+        b_ms, b_by = bound(*eps_edges_work(p.shape[0], p.shape[1], valid,
+                                           total),
+                           ops_per_s=FP32_INSTR_PER_S)
+        print(f"eps_edges {name}: kernel {ms:.6f} ms, {dev_ms:.6f} ms from "
+              f"a CUDA graph, plain {plain:.6f} ms, bound {b_ms:.6f} ms "
+              f"({b_by}), {valid * valid} pair tests needed, {total} edges; "
+              f"plan {plan}")
+        # the two passes' design bound: every pair of the buffer tested
+        # twice
+        two_ms = 2 * 9.0 * p.shape[0] ** 2 / FP32_INSTR_PER_S * 1e3
+        print(f"eps_edges {name}: both passes over all "
+              f"{p.shape[0] ** 2} pairs, bound {two_ms:.6f} ms")
+        times.append({"ms": ms, "graph_ms": dev_ms, "plain_ms": plain,
+                      "bound_ms": b_ms, "bound_by": b_by})
+    # the record: the sensor frame's buffer; every check above is bit-equal
+    return {"max_abs_err": 0, **times[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -2411,6 +2537,8 @@ def run_sequence(pipe, ident: str) -> dict:
     require_one_pass(launches, "the sequence run")
     require(launches["radius_count"] == 1, f"the last frame's density "
             f"launches radius_count once, got {launches['radius_count']}")
+    require(launches["eps_edges"] == 0,
+            "the sequence took the all-pairs clustering")
     seq = out["tracked_people"]
     tracked = seq.mask.sum(1).tolist()
     got = {"people": out["density"]["total_people"], "tracked": tracked,
@@ -3402,6 +3530,11 @@ def main() -> int:
     phase("radius_count kernel against its plain version")
     radius = run_radius_checks(dev)
 
+    phase("eps_edges kernel against its plain version")
+    t0 = time.perf_counter()
+    eps_rec = run_eps_checks(dev)
+    print(f"phase took {time.perf_counter() - t0:.3f} s")
+
     phase("column-table kernels against their plain versions")
     t0 = time.perf_counter()
     cols = run_column_checks(dev)
@@ -3427,7 +3560,7 @@ def main() -> int:
 
     venues = {}
     for n, ref, kernels_used in (
-            (40_960, JAX_REFERENCE_40960, ("radius_count",)),
+            (40_960, JAX_REFERENCE_40960, ("radius_count", "eps_edges")),
             (262_144, JAX_REFERENCE_262144,
              ("radius_count", *COLUMN_KERNELS))):
         phase(f"{n:,}-point venue, card vs the port on the CPU")
@@ -3446,6 +3579,7 @@ def main() -> int:
         check_jax_reference(out, ref, f"card, {n:,} points")
         if n == 40_960:
             radius["launches"] = launches["radius_count"]
+            eps_rec["launches"] = launches["eps_edges"]
         print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("1,000,000-point venue on the card")
@@ -3456,6 +3590,8 @@ def main() -> int:
     for k in COLUMN_KERNELS:
         require(launches_1m[k] > 0, f"the 1M-point run did not launch {k}")
     require_one_pass(launches_1m, "the 1M-point run")
+    require(launches_1m["eps_edges"] == 0,
+            "the 1M-point run took the all-pairs clustering")
     check_jax_reference(out, JAX_REFERENCE_1M, "card, 1,000,000 points")
     out_1m = out
     again = pipe.analyze(big)
@@ -3579,6 +3715,12 @@ def main() -> int:
                             replaces=KERNELS[k][1], launches=launches[k],
                             **rec, **extra, cli_launches=launches_cli[k],
                             parallel_launches=launches_parallel[k]))
+    records.append(dict(name="eps_edges", route="cuda",
+                        source=KERNELS["eps_edges"][0],
+                        replaces=KERNELS["eps_edges"][1], **eps_rec,
+                        library_ms=None,
+                        cli_launches=launches_cli["eps_edges"],
+                        parallel_launches=launches_parallel["eps_edges"]))
     require([r["name"] for r in records] == list(KERNELS), "kernel records")
     require(all(r["graph_ms"] > 0 for r in records),
             "every kernel timed from a CUDA graph")

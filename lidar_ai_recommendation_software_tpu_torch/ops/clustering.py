@@ -11,10 +11,10 @@ cluster's smallest point index.
 This module holds the all-pairs backend, which serves clustering buffers
 of up to ``BRUTEFORCE_MAX_POINTS`` points (and the modular variant up to
 ``BRUTEFORCE_HARD_CAP``), and the dispatch to the column-grid backend
-above that (``ops/ccl.py``). The eps-adjacency is kept as a list of
-edges: at the monolith's eps = 0.3 m a point has a handful of neighbours,
-so a sweep over the edge list touches far less memory than a dense
-adjacency.
+above that (``ops/ccl.py``). The eps-adjacency is kept as compressed
+rows of edges (``ops/cuda/eps.py::eps_edges``): at the monolith's eps =
+0.3 m a point has a handful of neighbours, so a sweep over the edge list
+touches far less memory than a dense adjacency.
 """
 
 from __future__ import annotations
@@ -26,11 +26,12 @@ import torch
 from lidar_ai_recommendation_software_tpu_torch.ops import ccl
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.columns import (
     INT_MAX, dense_ids)
-from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
-    PAIRS_PER_CHUNK)
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda.eps import (
+    eps_edges)
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.place import (
     place_dense)
-from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
+from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
+    count, stage)
 
 # Largest clustering buffer the all-pairs backend takes for the monolith
 # variant; above it the column-grid connected components take over, as in
@@ -47,40 +48,48 @@ BRUTEFORCE_HARD_CAP = 131072
 SEGSUM_MAX_POINTS = 2_097_152
 
 
-def _eps_edges(points: torch.Tensor, mask: torch.Tensor, eps: float
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All ordered pairs (i, j) of valid points with squared distance
-    <= eps^2, self pairs included. Returns (rows, cols) int64, sorted by
-    row.
-
-    The squared distance is summed axis by axis as the JAX package sums
-    it, and eps^2 is rounded the same way (squared in float32), so
-    pairs at exactly eps fall on the same side in both."""
-    n, d = points.shape
-    e = torch.tensor(eps, dtype=points.dtype, device=points.device)
-    r2 = e * e
-    chunk = max(1, PAIRS_PER_CHUNK // max(n, 1))
-    rows, cols = [], []
-    for s in range(0, n, chunk):
-        q = points[s:s + chunk]
-        diff = q[:, None, 0] - points[None, :, 0]
-        d2 = diff * diff
-        for k in range(1, d):
-            diff = q[:, None, k] - points[None, :, k]
-            d2 = d2 + diff * diff
-        hit = (d2 <= r2) & mask[None, :] & mask[s:s + chunk, None]
-        r, c = hit.nonzero(as_tuple=True)
-        rows.append(r + s)
-        cols.append(c)
-    return torch.cat(rows), torch.cat(cols)
-
-
 def _neighbour_min(labels: torch.Tensor, rows: torch.Tensor,
                    cols: torch.Tensor) -> torch.Tensor:
     """For every point, the smallest label over its edges (INT_MAX when
     it has none). Min is order-free, so the scatter is deterministic."""
     out = torch.full_like(labels, INT_MAX)
     return out.scatter_reduce_(0, rows, labels[cols], reduce="amin")
+
+
+def _dbscan_edges(offsets: torch.Tensor, cols: torch.Tensor,
+                  mask: torch.Tensor, min_samples: int, max_iters: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``dbscan_bruteforce`` on the eps-adjacency ``eps_edges`` built."""
+    n = mask.shape[0]
+    dev = mask.device
+    counts = offsets.diff()
+    core = mask & (counts >= min_samples)
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    # expanded on the device: the edge count is known, so no read
+    rows = torch.repeat_interleave(idx, counts, output_size=cols.shape[0])
+
+    # Every edge serves both the propagation and the border labels: a
+    # point that is not core keeps INT_MAX through the sweeps, so its edges
+    # add nothing to a core point's minimum, and a row that is not core
+    # takes its minimum over its core neighbours alone.
+    labels = torch.where(core, idx, INT_MAX)
+    for _ in range(max_iters):
+        nbr_min = _neighbour_min(labels, rows, cols)
+        new = torch.where(core, torch.minimum(labels, nbr_min), labels)
+        for _ in range(2):  # pointer jumping
+            hop = new[new.clamp(0, n - 1)]
+            new = torch.where(core, torch.minimum(new, hop), new)
+        changed = bool((new != labels).any())
+        labels = new
+        if not changed:
+            break
+
+    border_min = _neighbour_min(labels, rows, cols)
+    labels = torch.where(mask & ~core & (border_min != INT_MAX), border_min,
+                         labels)
+    labels = torch.where(labels == INT_MAX, -1, labels)
+    dense, n_clusters = dense_ids(labels)
+    return dense, n_clusters, torch.zeros((), dtype=torch.int32, device=dev)
 
 
 def dbscan_bruteforce(points: torch.Tensor, mask: torch.Tensor, eps: float,
@@ -92,39 +101,8 @@ def dbscan_bruteforce(points: torch.Tensor, mask: torch.Tensor, eps: float,
     0). The sweeps are the JAX package's: at most ``max_iters`` Jacobi
     min-label sweeps, each followed by two pointer-jumping rounds, ending
     at the first sweep that changes nothing."""
-    n = points.shape[0]
-    dev = points.device
-    rows, cols = _eps_edges(points, mask, eps)
-    counts = torch.bincount(rows, minlength=n)
-    core = mask & (counts >= min_samples)
-    idx = torch.arange(n, dtype=torch.int64, device=dev)
-
-    # Core-core edges carry the propagation; core-to-border edges label
-    # the border points once at the end.
-    to_core = core[cols]
-    cc = to_core & core[rows]
-    cc_rows, cc_cols = rows[cc], cols[cc]
-    bd = to_core & ~core[rows]
-    bd_rows, bd_cols = rows[bd], cols[bd]
-
-    labels = torch.where(core, idx, INT_MAX)
-    for _ in range(max_iters):
-        nbr_min = _neighbour_min(labels, cc_rows, cc_cols)
-        new = torch.where(core, torch.minimum(labels, nbr_min), labels)
-        for _ in range(2):  # pointer jumping
-            hop = new[new.clamp(0, n - 1)]
-            new = torch.where(core, torch.minimum(new, hop), new)
-        changed = bool((new != labels).any())
-        labels = new
-        if not changed:
-            break
-
-    border_min = _neighbour_min(labels, bd_rows, bd_cols)
-    labels = torch.where(mask & ~core & (border_min != INT_MAX), border_min,
-                         labels)
-    labels = torch.where(labels == INT_MAX, -1, labels)
-    dense, n_clusters = dense_ids(labels)
-    return dense, n_clusters, torch.zeros((), dtype=torch.int32, device=dev)
+    return _dbscan_edges(*eps_edges(points, mask, eps), mask, min_samples,
+                         max_iters)
 
 
 def dbscan_labels(points: torch.Tensor, mask: torch.Tensor, eps: float,
@@ -142,11 +120,16 @@ def dbscan_labels(points: torch.Tensor, mask: torch.Tensor, eps: float,
     where columns degenerate); larger ones the column-grid backend
     (``ccl.dbscan_gs``) on a ``ncx`` x ``ncy`` grid of ``column_cap``
     slots, on every device. Runs in a ``preprocess.cluster`` span, whose
-    ``host_reads`` a tracing session counts."""
-    with stage("preprocess.cluster"):
+    ``host_reads`` a tracing session counts; on the all-pairs backend the
+    span's ``edges`` is the size of the eps-adjacency and its counter
+    ``preprocess.eps_kernel`` is 1 where the ``eps_edges`` kernel built it
+    and 0 where the plain version did."""
+    with stage("preprocess.cluster") as attrs:
         if points.shape[0] <= max(brute_cap, BRUTEFORCE_MAX_POINTS):
-            return dbscan_bruteforce(points, mask, eps, min_samples,
-                                     max_iters=max_iters)
+            offsets, cols = eps_edges(points, mask, eps)
+            attrs["edges"] = cols.shape[0]
+            count("preprocess.eps_kernel", int(points.device.type == "cuda"))
+            return _dbscan_edges(offsets, cols, mask, min_samples, max_iters)
         return ccl.dbscan_gs(points, mask, eps, min_samples, ncx=ncx,
                              ncy=ncy, column_cap=column_cap,
                              max_iters=max_iters)

@@ -3,8 +3,9 @@
 
 The counterpart of the JAX package's ``ops/pallas/kernels.py``. Beside this
 module, ``columns.py`` wraps the column-table kernels of the venue-scale
-clustering, ``place.py`` the ``place_dense`` scatter of the centroid pack,
-and ``pointnet.py`` farthest-point sampling and the fused set-abstraction
+clustering, ``eps.py`` the eps-adjacency of the all-pairs clustering,
+``place.py`` the ``place_dense`` scatter of the centroid pack, and
+``pointnet.py`` farthest-point sampling and the fused set-abstraction
 MLP of the neural path. Each kernel has a wrapper that
 dispatches on the device of its tensors: a CPU tensor goes to the plain
 version; a CUDA tensor goes to the kernel, and a kernel that fails to
@@ -47,7 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"radius_count": 0, "table_fill": 0, "dense_tail": 0,
             "column_counts": 0, "border_min": 0, "propagate": 0,
             "place_dense": 0, "fps_single": 0, "fps_batched": 0,
-            "sa_mlp_pool": 0}
+            "sa_mlp_pool": 0, "eps_edges": 0}
 # fps launches by the route of its launch plan (ops/cuda/pointnet.py)
 FPS_ROUTES = {"registers": 0, "block": 0, "cluster": 0, "stream": 0}
 
@@ -65,13 +66,15 @@ _SIGNATURES = {
     "fps_max_active_clusters": [_I, _I, _I],
     "fps_launch": [_P, _P, _P] + [_I] * 9 + [_P, _P],
     "sa_mlp_pool_launch": [_P] * 8 + [_I] * 7 + [_P, _P],
+    "eps_count_launch": [_P, _P, _I, _F] + [_I] * 4 + [_P, _P],
+    "eps_fill_launch": [_P, _P, _I, _F] + [_I] * 4 + [_P] * 4,
 }
 
 # the most shared memory a block of sm_90 may use
 SMEM_PER_BLOCK = 232_448
 
 # Pair tests per chunk of the plain all-pairs passes, here and in
-# ``ops/clustering.py`` (bounds their temporaries at a few hundred MB).
+# ``eps.py`` (bounds their temporaries at a few hundred MB).
 PAIRS_PER_CHUNK = 1 << 24
 
 

@@ -417,3 +417,77 @@ def dense_tail_label_cases():
             case("200,003 points", 200_003, 9000),
             case("1,000,003 points, many words a block", 1_000_003, 40_000),
             case("no representative", 5000, 0)]
+
+
+def eps_edges_cases():
+    """Clouds that stress the eps-adjacency of the all-pairs clustering: a
+    list of (name, points (N, D) float32, mask (N,), eps). Pairs exactly
+    eps apart in float32 along each axis and far from the origin, masks
+    with holes and a padded tail, every point masked, one point, N not a
+    multiple of the tiles, a clump where every pair is an edge, one and
+    two axes, NaN and infinite coordinates, coincident points, and the
+    modular variant's standardised space (eps = 0.5 sigma)."""
+    rng = np.random.RandomState(23)
+
+    def blobs(n, extent, spread):
+        centres = rng.uniform(-extent, extent, (max(1, n // 20), 3))
+        pts = centres[rng.randint(0, len(centres), n)] + rng.normal(
+            0, spread, (n, 3))
+        return pts.astype(np.float32)
+
+    # a neighbour at exactly float32(eps) along each axis (the squared
+    # distance is r2 itself) and one at the next float above it; then the
+    # same 1,000 m from the origin, where eps rounds to a float nearby
+    e = np.float32(0.3)
+    exact = []
+    for base in (0.0, 1000.0):
+        for axis in range(3):
+            p = np.full(3, np.float32(base + 5 * axis), np.float32)
+            p[axis] = np.float32(base)
+            q, far = p.copy(), p.copy()
+            q[axis] = np.float32(p[axis] + e)
+            far[axis] = np.nextafter(q[axis], np.float32(np.inf))
+            exact += [p, q, far]
+    # a 3-4-5 triangle at eps = 0.5 and a neighbour one ulp past 0.5
+    exact += [[20.0, 0.0, 0.0], [20.3, 0.4, 0.0], [20.0, 0.5, 0.0],
+              [20.0, np.nextafter(np.float32(0.5), np.float32(1)), 0.0]]
+    exact = np.float32(exact)
+
+    holes = blobs(3000, 8.0, 0.2)
+    hole_mask = (rng.rand(3000) < 0.8) & (np.arange(3000) < 2500)
+
+    venue = scaled_venue(4096, seed=5, people_per_100m2=5.56).astype(
+        np.float32)
+    standard = ((venue - venue.mean(0)) / venue.std(0)).astype(np.float32)
+
+    odd = blobs(600, 3.0, 0.2)
+    odd[::97, 0] = np.nan
+    odd[1::97, 1] = np.inf
+    odd[2::97, 2] = -np.inf
+
+    twins = np.repeat(blobs(300, 4.0, 0.3), 3, axis=0)
+
+    def case(name, pts, mask, eps):
+        return name, np.ascontiguousarray(pts, np.float32), mask, eps
+
+    return [
+        case("pairs at exactly eps", exact, np.ones(len(exact), bool), 0.3),
+        case("pairs at exactly eps = 0.5", exact, np.ones(len(exact), bool),
+             0.5),
+        case("holes and a padded tail", holes, hole_mask, 0.3),
+        case("every point masked", blobs(700, 3.0, 0.2), np.zeros(700, bool),
+             0.3),
+        case("one point", blobs(1, 1.0, 0.1), np.ones(1, bool), 0.3),
+        case("N not a multiple of the tiles", blobs(1000, 6.0, 0.3),
+             np.ones(1000, bool), 0.4),
+        case("every pair an edge", blobs(700, 0.0, 0.01), np.ones(700, bool),
+             0.5),
+        case("two axes", blobs(2000, 6.0, 0.3)[:, :2], np.ones(2000, bool),
+             0.3),
+        case("one axis", blobs(600, 20.0, 0.5)[:, :1], np.ones(600, bool),
+             0.3),
+        case("NaN and infinite coordinates", odd, np.ones(600, bool), 0.4),
+        case("coincident points", twins, rng.rand(900) < 0.9, 0.3),
+        case("standardised space, eps 0.5 sigma", standard,
+             np.arange(4096) < 4000, 0.5),
+    ]

@@ -403,6 +403,18 @@ def radius_count_work(centres: float, people: float,
     return (centres * 8 + people * 9 + centres * 4, 6.0 * pairs)
 
 
+def eps_edges_work(points: float, dims: int, valid: float,
+                   edges: float) -> Tuple[float, float]:
+    """(bytes, operations) of ``eps_edges``: the points (4 D bytes) and the
+    mask (a byte) read once, the offsets (8 bytes a point) and the
+    columns (4 bytes an edge) written once; 9 operations (3 differences,
+    3 products, 2 sums, a compare) a pair of valid points, tested once.
+    None of them fuses, so ``chip_smoke.py`` bounds the kernel by these
+    counts at the FP32 lanes' instruction rate."""
+    return (points * (4 * dims + 1) + (points + 1) * 8 + edges * 4,
+            9.0 * valid * valid)
+
+
 # the column kernels that ``Pipeline.analyze`` launches on the card
 CLUSTERING_KERNELS = ("table_fill", "column_counts", "propagate",
                       "border_min", "dense_tail")

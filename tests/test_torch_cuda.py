@@ -31,14 +31,14 @@ from lidar_ai_recommendation_software_tpu_torch import (
     scaled_venue)
 from lidar_ai_recommendation_software_tpu_torch.ops import ccl, clustering
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import columns as C
-from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda import eps, kernels
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import place
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda import (
     pointnet as P)
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
     column_occupancy_cases, dense_tail_cases, dense_tail_label_cases,
-    place_dense_cases, sa_mlp_pool_cases, table_fill_cases)
+    eps_edges_cases, place_dense_cases, sa_mlp_pool_cases, table_fill_cases)
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -59,6 +59,7 @@ def test_card_matches_cpu(venue, config):
     torch.cuda.synchronize()
     if config.density.mode == "radius":
         assert kernels.LAUNCHES["radius_count"] > 0
+    assert kernels.LAUNCHES["eps_edges"] == eps.EPS_LAUNCHES
     cpu = Pipeline(config, device="cpu").analyze(venue)
     np.testing.assert_array_equal(card["processed"].labels.cpu().numpy(),
                                   cpu["processed"].labels.numpy())
@@ -200,10 +201,11 @@ def test_venue_scale_card_matches_cpu(cuda_device):
     for k in ("table_fill", "dense_tail", "column_counts", "border_min",
               "propagate", "radius_count"):
         assert kernels.LAUNCHES[k] > 0, k
+    assert kernels.LAUNCHES["eps_edges"] == 0  # not the all-pairs backend
     assert set(kernels.LAUNCHES) == {
         "radius_count", "table_fill", "dense_tail", "column_counts",
         "border_min", "propagate", "place_dense", "fps_single",
-        "fps_batched", "sa_mlp_pool"}
+        "fps_batched", "sa_mlp_pool", "eps_edges"}
     cpu = Pipeline(device="cpu").analyze(pts)
     np.testing.assert_array_equal(card["processed"].labels.cpu().numpy(),
                                   cpu["processed"].labels.numpy())
@@ -559,3 +561,30 @@ def test_hashgrid_card_matches_cpu(cuda_device, name):
                                   bucket_capacity=cap)
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
+
+
+# the eps-adjacency's edge cases, and a buffer whose slices hold two column
+# tiles each
+EPS_CASES = {case[0]: case[1:] for case in eps_edges_cases()}
+EPS_CASES["20,000 points, slices of two tiles"] = (
+    *_blobs(3, 20_000, 20.0, 0.15, 0.9), 0.3)
+
+
+@pytest.mark.parametrize("name", sorted(EPS_CASES))
+def test_eps_edges_matches_plain_version(cuda_device, name):
+    """``eps_edges`` on the card: the plain version's offsets and columns
+    bit for bit, from the count and the fill launch (the count alone where
+    there is no edge), and the same again on a second call."""
+    pts, mask, eps_ = EPS_CASES[name]
+    p = torch.from_numpy(pts).to(cuda_device)
+    m = torch.from_numpy(mask).to(cuda_device)
+    kernels.reset_launch_counts()
+    offsets, cols = eps.eps_edges(p, m, eps_)
+    torch.cuda.synchronize()
+    want = eps.eps_edges_reference(p, m, eps_)
+    assert torch.equal(offsets, want[0])
+    assert torch.equal(cols, want[1])
+    assert kernels.LAUNCHES["eps_edges"] == (
+        eps.EPS_LAUNCHES if cols.numel() else 1)
+    again = eps.eps_edges(p, m, eps_)
+    assert torch.equal(again[0], offsets) and torch.equal(again[1], cols)
