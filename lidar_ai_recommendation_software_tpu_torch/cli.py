@@ -284,11 +284,10 @@ def cmd_bench(args) -> int:
 
     pipe = Pipeline(device=args.device)
     pts = scaled_venue(args.points)
-    cfg = pipe.fit_capacity(pts)
-    clouds = [PointCloud.from_numpy(pts + i * 1e-4,
-                                    cfg.capacity.max_points,
-                                    device=pipe.device)
-              for i in range(4)]
+    scans = [pipe._upload(pts + i * 1e-4) for i in range(4)]
+    cfg = pipe.fit_capacity(scans[0])
+    clouds = [PointCloud.from_tensor(s, cfg.capacity.max_points)
+              for s in scans]
     # the first call builds the CUDA kernels (nvcc) when none are built
     t0 = time.time()
     r = pipe.analyze_device(clouds[0], cfg)

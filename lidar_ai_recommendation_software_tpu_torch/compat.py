@@ -49,9 +49,9 @@ def preprocess_lidar_data(points: np.ndarray,
     from lidar_ai_recommendation_software_tpu_torch.types import PointCloud
 
     pipe = Pipeline(config or MODULAR_CONFIG, device=device)
-    cfg = pipe.fit_capacity(np.asarray(points, np.float64))
-    cloud = PointCloud.from_numpy(points, cfg.capacity.max_points,
-                                  device=pipe.device)
+    scan = pipe._upload(points)  # not recentred, as the JAX package's is not
+    cfg = pipe.fit_capacity(scan)
+    cloud = PointCloud.from_tensor(scan, cfg.capacity.max_points)
     processed, people, res = pipe.analyze_device(cloud, cfg)
 
     mask = processed.mask.cpu().numpy()

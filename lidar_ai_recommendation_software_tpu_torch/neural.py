@@ -26,6 +26,8 @@ from lidar_ai_recommendation_software_tpu_torch.config import (
 from lidar_ai_recommendation_software_tpu_torch.models.train import (
     BATCHED_SCOPE, expected_flax_shapes, flax_leaves, load_params_npz,
     make_model, params_from_flax)
+from lidar_ai_recommendation_software_tpu_torch.pipeline import (
+    Pipeline, restore_offset)
 from lidar_ai_recommendation_software_tpu_torch.utils.recommendations import (
     generate_recommendations)
 
@@ -156,9 +158,8 @@ class NeuralPipeline:
         of ``Pipeline.analyze``, minus the per-point tensors the neural
         path never builds)."""
         points = np.asarray(points, dtype=np.float64)[:, :3]
-        offset = np.zeros(3)
-        if np.abs(points[:, :2]).max() > 4096.0:  # Pipeline.RECENTER_THRESHOLD
-            offset[:2] = np.round(points[:, :2].mean(axis=0))
+        offset = Pipeline.recentring_offset(points)
+        if offset.any():
             points = points - offset
 
         vmin = points[:, :2].min(axis=0)
@@ -199,8 +200,8 @@ class NeuralPipeline:
                 break
             ci, cj = divmod(int(i), g)
             hotspots.append({
-                "x": float(vmin[0] + (ci + 0.5) * cell + offset[0]),
-                "y": float(vmin[1] + (cj + 0.5) * cell + offset[1]),
+                "x": float(vmin[0] + (ci + 0.5) * cell),
+                "y": float(vmin[1] + (cj + 0.5) * cell),
                 "density": float(flat[i])})
 
         density_results = {
@@ -209,8 +210,7 @@ class NeuralPipeline:
             "max_density": max_density,
             "density_map": density,
             "density_grid": density.T,
-            "origin": (float(vmin[0] + offset[0]),
-                       float(vmin[1] + offset[1])),
+            "origin": (float(vmin[0]), float(vmin[1])),
             "grid_size": cell,
             "hotspots": hotspots,
         }
@@ -218,8 +218,8 @@ class NeuralPipeline:
         mags = np.sqrt((flow ** 2).sum(-1))
         mean_vec = flow.mean(axis=(0, 1))
         ii, jj = np.meshgrid(np.arange(g), np.arange(g), indexing="ij")
-        px = vmin[0] + (ii + 0.5) * cell + offset[0]
-        py = vmin[1] + (jj + 0.5) * cell + offset[1]
+        px = vmin[0] + (ii + 0.5) * cell
+        py = vmin[1] + (jj + 0.5) * cell
 
         flow_results = {
             "avg_speed": float(mags.mean()),
@@ -233,6 +233,7 @@ class NeuralPipeline:
             },
             "congestion_map": congestion,
         }
+        restore_offset(offset, density_results, flow_results)
 
         recommendations = generate_recommendations(
             density_results, flow_results, self.config.recommend)

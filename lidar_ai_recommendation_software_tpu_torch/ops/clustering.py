@@ -31,7 +31,7 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.eps import (
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.place import (
     place_dense)
 from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
-    count, stage)
+    stage)
 
 # Largest clustering buffer the all-pairs backend takes for the monolith
 # variant; above it the column-grid connected components take over, as in
@@ -121,14 +121,11 @@ def dbscan_labels(points: torch.Tensor, mask: torch.Tensor, eps: float,
     (``ccl.dbscan_gs``) on a ``ncx`` x ``ncy`` grid of ``column_cap``
     slots, on every device. Runs in a ``preprocess.cluster`` span, whose
     ``host_reads`` a tracing session counts; on the all-pairs backend the
-    span's ``edges`` is the size of the eps-adjacency and its counter
-    ``preprocess.eps_kernel`` is 1 where the ``eps_edges`` kernel built it
-    and 0 where the plain version did."""
+    span's ``edges`` is the size of the eps-adjacency."""
     with stage("preprocess.cluster") as attrs:
         if points.shape[0] <= max(brute_cap, BRUTEFORCE_MAX_POINTS):
             offsets, cols = eps_edges(points, mask, eps)
             attrs["edges"] = cols.shape[0]
-            count("preprocess.eps_kernel", int(points.device.type == "cuda"))
             return _dbscan_edges(offsets, cols, mask, min_samples, max_iters)
         return ccl.dbscan_gs(points, mask, eps, min_samples, ncx=ncx,
                              ncy=ncy, column_cap=column_cap,

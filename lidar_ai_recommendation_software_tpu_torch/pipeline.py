@@ -59,14 +59,32 @@ def people_of_cloud(cloud: PointCloud, config: PipelineConfig) -> tuple:
     return processed, density_mod.extract_people(processed, config)
 
 
-def _shift_flow(flow_results: Dict, ox: float, oy: float) -> None:
-    """Add the recentring offset back to the flow dict's positions (the
-    bottlenecks and the flow vectors), in place."""
-    for b in flow_results["bottlenecks"]:
-        b["x"] += ox
-        b["y"] += oy
-    flow_results["flow_vectors"]["positions"] = (
-        flow_results["flow_vectors"]["positions"] + np.array([ox, oy]))
+def restore_offset(offset: np.ndarray, *results: Dict) -> None:
+    """Add the recentring ``offset`` back to the coordinates of each
+    density or flow dict of ``results``, in place: the origin, hotspots,
+    bottlenecks and flow-vector positions it holds. Nothing where the
+    offset is zero, so the positions stay the float32 arrays the device
+    results give."""
+    if not offset.any():
+        return
+    ox, oy = float(offset[0]), float(offset[1])
+    for res in results:
+        if "origin" in res:
+            res["origin"] = (res["origin"][0] + ox, res["origin"][1] + oy)
+        for spot in res.get("hotspots", []) + res.get("bottlenecks", []):
+            spot["x"] += ox
+            spot["y"] += oy
+        if "flow_vectors" in res:
+            vectors = res["flow_vectors"]
+            vectors["positions"] = vectors["positions"] + np.array([ox, oy])
+
+
+def _recentre(scan: torch.Tensor, offset: np.ndarray) -> torch.Tensor:
+    """``scan`` less ``offset``, on the scan's device; ``scan`` itself
+    where the offset is zero."""
+    if not offset.any():
+        return scan
+    return scan - torch.tensor(offset, device=scan.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,6 +261,22 @@ class Pipeline:
     # coordinates back on the host.
     RECENTER_THRESHOLD = 4096.0
 
+    @classmethod
+    def recentring_offset(cls, points: np.ndarray,
+                          extent: Optional[np.ndarray] = None
+                          ) -> np.ndarray:
+        """The (3,) offset that recentring subtracts from ``points``: their
+        xy mean in float64, rounded to whole metres, where some |x| or |y|
+        exceeds ``RECENTER_THRESHOLD``; zeros elsewhere. ``extent``, the
+        minima over the maxima where they are measured already, holds the
+        largest magnitudes at its ends."""
+        ends = np.asarray(points if extent is None else extent)
+        offset = np.zeros(3)
+        if np.abs(ends[:, :2]).max() > cls.RECENTER_THRESHOLD:
+            offset[:2] = np.round(
+                np.asarray(points, dtype=np.float64)[:, :2].mean(axis=0))
+        return offset
+
     def _grown_cluster_cfg(self, cfg: PipelineConfig
                            ) -> Optional[PipelineConfig]:
         """Double the clustering capacities after an overflow: the column
@@ -315,28 +349,31 @@ class Pipeline:
             self._analyzed = True
             return self._analyze(points)
 
-    def _ingest(self, points: np.ndarray
-                ) -> Tuple[PointCloud, PipelineConfig, np.ndarray]:
-        """The scan crosses to the device once, as float64, and everything
-        sized from it is measured there: (cloud, config, offset), the
-        offset the recentring subtracted (zeros when it did not engage).
-        Host reads: the extent, and above 32,768 points the largest column
-        count; a recentred scan adds the offset's copy and a second
-        extent."""
+    def _upload(self, points: np.ndarray) -> torch.Tensor:
+        """A scan's one copy to the pipeline's device, for every entry
+        point: the first three columns of ``points`` as float64, in a
+        ``pipeline.upload`` span (``bytes``, ``pinned``)."""
         with stage("pipeline.prepare"):
             points = np.ascontiguousarray(
                 np.asarray(points, dtype=np.float64)[:, :3])
         with stage("pipeline.upload", pinned=False, bytes=points.nbytes):
-            scan = torch.from_numpy(points).to(self.device)
+            return torch.from_numpy(points).to(self.device)
+
+    def _ingest(self, points: np.ndarray
+                ) -> Tuple[PointCloud, PipelineConfig, np.ndarray]:
+        """The scan crosses to the device once (``_upload``), and
+        everything sized from it is measured there: (cloud, config,
+        offset), the offset the recentring subtracted (zeros when it did
+        not engage). Host reads: the extent, and above 32,768 points the
+        largest column count; a recentred scan adds the offset's copy and
+        a second extent."""
+        scan = self._upload(points)
         with stage("pipeline.fit", device=scan.device.type):
             measured = measure_scan(scan)
-            offset = np.zeros(3)
-            # the largest |x| or |y| is the larger of the extent's ends'
-            if np.abs(measured.host[:, :2]).max() > self.RECENTER_THRESHOLD:
+            offset = self.recentring_offset(points, measured.host)
+            if offset.any():
                 profiling.count("pipeline.recentred")
-                offset[:2] = np.round(points[:, :2].mean(axis=0))
-                measured = measure_scan(scan - torch.tensor(
-                    offset, device=scan.device))
+                measured = measure_scan(_recentre(scan, offset))
             cfg = self.fit_capacity(measured)
             cloud = PointCloud.from_tensor(measured.points,
                                            cfg.capacity.max_points)
@@ -357,15 +394,7 @@ class Pipeline:
         with stage("pipeline.readback"):
             density_results = res.density.to_host_dict()
             flow_results = res.flow.to_host_dict()
-            if offset.any():
-                ox, oy = float(offset[0]), float(offset[1])
-                density_results["origin"] = (
-                    density_results["origin"][0] + ox,
-                    density_results["origin"][1] + oy)
-                for h in density_results["hotspots"]:
-                    h["x"] += ox
-                    h["y"] += oy
-                _shift_flow(flow_results, ox, oy)
+            restore_offset(offset, density_results, flow_results)
         with stage("pipeline.recommend"):
             recommendations = generate_recommendations(
                 density_results, flow_results, self.config.recommend)
@@ -402,10 +431,12 @@ class Pipeline:
         One call is one ``pipeline.sequence`` span (``frames``,
         ``points``), the root of its scan in a ``profiling.tracing()``
         session: the last frame's ``pipeline.analyze`` inside it, then
-        ``sequence.fit`` (``device``: the largest frame's upload and
-        fit), a ``sequence.frame`` (``t``) for each earlier frame's upload
-        and extraction, with the counter ``sequence.restarts`` where a
-        frame's people outgrow the capacity, and ``temporal.flow``."""
+        ``sequence.fit`` (``device``: the largest frame's fit), a
+        ``sequence.frame`` (``t``) for each earlier frame's extraction,
+        with the counter ``sequence.restarts`` where a frame's people
+        outgrow the capacity, and ``temporal.flow``. Each frame crosses
+        to the device once a call, recentred as the last frame was, in a
+        ``pipeline.upload`` span under the span that first needs it."""
         with stage("pipeline.sequence", frames=len(frames),
                    points=sum(len(f) for f in frames)):
             return self._analyze_sequence(frames, dt)
@@ -419,18 +450,18 @@ class Pipeline:
         offset = out["coordinate_offset"]
         min_h = self.config.flow.track_min_height
 
-        def cloud_of(frame, c):
-            pts = np.asarray(frame, dtype=np.float64)[:, :3] - offset
-            return PointCloud.from_numpy(pts, c.capacity.max_points,
-                                         device=self.device)
+        scans: Dict[int, torch.Tensor] = {}  # the frames on the device
+
+        def scan_of(t: int) -> torch.Tensor:
+            if t not in scans:
+                scans[t] = _recentre(self._upload(frames[t]), offset)
+            return scans[t]
 
         # the largest frame is measured where the points go, as ``_ingest``
         # measures a scan: torch's CPU operators stall on a busy host
-        largest = frames[int(np.argmax([len(f) for f in frames]))]
+        largest = int(np.argmax([len(f) for f in frames]))
         with stage("sequence.fit", device=self.device.type):
-            cfg = self.fit_capacity(torch.from_numpy(np.ascontiguousarray(
-                np.asarray(largest, dtype=np.float64)[:, :3] - offset)
-            ).to(self.device))
+            cfg = self.fit_capacity(scan_of(largest))
         tracked: List[People] = []
         t = 0
         while t < len(frames):
@@ -439,8 +470,10 @@ class Pipeline:
                 proc, ppl = processed, out["people"]
             else:
                 with stage("sequence.frame", t=t):
+                    cloud = PointCloud.from_tensor(
+                        scan_of(t), cfg.capacity.max_points)
                     (proc, ppl), grown = self._run_exact(
-                        people_of_cloud, cloud_of(frames[t], cfg), cfg)
+                        people_of_cloud, cloud, cfg)
                     restart = (grown.capacity.max_people
                                != cfg.capacity.max_people)
                     if restart:
@@ -456,8 +489,7 @@ class Pipeline:
         res = temporal_mod.temporal_flow_multi(
             seq, dt, processed.mins[:2], processed.maxs[:2], cfg)
         flow_results = res.to_host_dict()
-        if offset.any():
-            _shift_flow(flow_results, float(offset[0]), float(offset[1]))
+        restore_offset(offset, flow_results)
         out["flow"] = flow_results
         out["tracked_people"] = seq
         out["recommendations"] = generate_recommendations(

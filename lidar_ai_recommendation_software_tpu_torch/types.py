@@ -45,26 +45,12 @@ class PointCloud:
         return self.mask.sum(dtype=torch.int32)
 
     @classmethod
-    def from_numpy(cls, pts: np.ndarray, capacity: Optional[int] = None,
-                   device: torch.device | str = "cpu") -> "PointCloud":
-        pts = np.asarray(pts, dtype=np.float32)[:, :3]
-        n = pts.shape[0]
-        cap = capacity or n
-        if n > cap:
-            raise ValueError(f"point count {n} exceeds capacity {cap}")
-        buf = np.zeros((cap, 3), dtype=np.float32)
-        buf[:n] = pts
-        mask = np.zeros((cap,), dtype=bool)
-        mask[:n] = True
-        return cls(points=torch.from_numpy(buf).to(device),
-                   mask=torch.from_numpy(mask).to(device))
-
-    @classmethod
     def from_tensor(cls, pts: torch.Tensor,
                     capacity: Optional[int] = None) -> "PointCloud":
-        """``from_numpy``'s cloud, bit for bit, built on the device that
-        holds ``pts`` (float64 or float32, (N, >=3)): cast to float32
-        (round to nearest even, as NumPy's ``astype``), padding and mask."""
+        """The cloud of ``pts`` (float64 or float32, (N, >=3)), built on
+        the device that holds them: the first three columns cast to
+        float32 (round to nearest even, as NumPy's ``astype``), padded to
+        ``capacity`` rows, and the mask of the first N."""
         n = pts.shape[0]
         cap = capacity or n
         if n > cap:
@@ -74,6 +60,14 @@ class PointCloud:
         mask = torch.zeros((cap,), dtype=torch.bool, device=pts.device)
         mask.narrow(0, 0, n).fill_(True)
         return cls(points=buf, mask=mask)
+
+    @classmethod
+    def from_numpy(cls, pts: np.ndarray, capacity: Optional[int] = None,
+                   device: torch.device | str = "cpu") -> "PointCloud":
+        """``from_tensor`` of ``pts``, cast to float32 by NumPy, on
+        ``device``."""
+        pts = np.ascontiguousarray(np.asarray(pts)[:, :3], dtype=np.float32)
+        return cls.from_tensor(torch.from_numpy(pts).to(device), capacity)
 
 
 @dataclasses.dataclass

@@ -5,17 +5,16 @@ UX wrappers). This module provides:
 
   - ``stage``: the one span primitive, a context manager (or decorator)
     that times a stage of the program into a bounded per-name aggregate
-    (``timings``, ``report``) and, while a ``torch.profiler`` runs, opens
-    a ``record_function`` range ``lidar.<name>``, so the program's spans
+    (``timings``) and, while a ``torch.profiler`` runs, opens a
+    ``record_function`` range ``lidar.<name>``, so the program's spans
     share the device trace's clock;
   - ``tracing``: a session that also keeps each span as a record, grouped
     by scan (every span under one top-level span, such as one
     ``Pipeline.analyze`` call), with its attributes and counters
     (``count``), the host reads torch reports among them;
-  - ``device_timer``: steady-state seconds per call of a function on the
-    card (CUDA events) or the CPU (host clock), with distinct inputs per
-    call;
-  - roofline accounting against the card's published peaks.
+  - the work counts of the hand-written kernels (``column_kernel_work``,
+    ``radius_count_work``, ``eps_edges_work``): the bytes and operations
+    each must spend, which ``chip_smoke.py`` bounds the kernels by.
 
 Outside a session a span costs two clock reads and an aggregate update,
 and a counter one check of a module-level flag.
@@ -33,7 +32,6 @@ import time
 import warnings
 from typing import Callable, Deque, Dict, Iterator, List, Optional, Tuple
 
-import numpy as np
 import torch
 
 PREFIX = "lidar."  # the ``record_function`` ranges' names
@@ -256,103 +254,6 @@ def reset_timings() -> None:
         _AGGREGATES.clear()
 
 
-def report() -> str:
-    lines = [f"{'stage':<32} {'count':>5} {'mean ms':>10} {'total s':>9}"]
-    for name, s in sorted(timings().items()):
-        lines.append(f"{name:<32} {s['count']:>5} {s['mean_ms']:>10.2f} "
-                     f"{s['total_s']:>9.2f}")
-    return "\n".join(lines)
-
-
-def _host_read(value) -> np.ndarray:
-    """A host copy of ``value``: for a tensor on the card, a read that
-    waits for the work queued before it."""
-    if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
-    return np.asarray(value)
-
-
-def device_timer(fn: Callable, make_input: Callable[[int], tuple],
-                 pull: Callable, iters: int = 4,
-                 warmup: int = 1) -> float:
-    """Steady-state seconds per call of ``fn``.
-
-    make_input(i) -> args tuple (distinct per call); pull(result) -> a
-    small value of the result. When that value is a tensor on the card,
-    the calls are timed with CUDA events on its stream; otherwise on the
-    host clock, up to a host read of the last call's value."""
-    r = None
-    for i in range(warmup):
-        r = fn(*make_input(i))
-        _host_read(pull(r))
-    probe = pull(r) if r is not None else None
-    if isinstance(probe, torch.Tensor) and probe.is_cuda:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for i in range(iters):
-            r = fn(*make_input(warmup + i))
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1000.0 / iters
-    t0 = time.perf_counter()
-    for i in range(iters):
-        r = fn(*make_input(warmup + i))
-    _host_read(pull(r))
-    return (time.perf_counter() - t0) / iters
-
-
-# ---------------------------------------------------------------------------
-# Roofline accounting
-# ---------------------------------------------------------------------------
-
-# Published peaks (NVIDIA's data sheet, dense, at the full 700 W) keyed by
-# a substring of ``torch.cuda.get_device_name()``: "NVIDIA H100 80GB HBM3"
-# is the SXM part. FP32 outside the tensor cores, bf16 in them; HBM3.
-DEVICE_PEAKS = {
-    "h100 80gb hbm3": {"chip": "H100 SXM", "fp32_tflops": 67.0,
-                       "bf16_tflops": 989.0, "hbm_gbps": 3350.0},
-}
-_PEAK_OF_DTYPE = {torch.float32: "fp32_tflops",
-                  torch.bfloat16: "bf16_tflops"}
-
-
-def device_peaks(device=None) -> Optional[Dict[str, float]]:
-    """Peak FLOP/s and bandwidth of ``device`` (default: CUDA device 0),
-    or None for a device not in ``DEVICE_PEAKS`` or without a card."""
-    if not torch.cuda.is_available():
-        return None
-    name = torch.cuda.get_device_name(device if device is not None else 0)
-    for key, peaks in DEVICE_PEAKS.items():
-        if key in name.lower():
-            return dict(peaks)
-    return None
-
-
-def roofline(flops: float, bytes_accessed: float, seconds: float,
-             device=None, dtype: torch.dtype = torch.float32
-             ) -> Dict[str, float]:
-    """Achieved vs peak for one timed kernel/program.
-
-    Returns achieved TFLOP/s and GB/s plus percent-of-peak numbers and
-    which roof binds (higher fraction of its peak). The FLOP peak is the
-    one of ``dtype``'s operations (float32 or bfloat16)."""
-    out = {
-        "achieved_tflops": flops / seconds / 1e12,
-        "achieved_gbps": bytes_accessed / seconds / 1e9,
-    }
-    peaks = device_peaks(device)
-    if peaks:
-        out["chip"] = peaks["chip"]
-        out["pct_peak_flops"] = 100.0 * out["achieved_tflops"] / \
-            peaks[_PEAK_OF_DTYPE[dtype]]
-        out["pct_peak_bw"] = 100.0 * out["achieved_gbps"] / \
-            peaks["hbm_gbps"]
-        out["bound"] = ("compute" if out["pct_peak_flops"]
-                        >= out["pct_peak_bw"] else "memory")
-    return out
-
-
 def column_kernel_work(points: float, slots: float, occupied: float,
                        columns: float, pairs: float, core_pairs: float,
                        core_scan: float, changed: float
@@ -413,64 +314,3 @@ def eps_edges_work(points: float, dims: int, valid: float,
     counts at the FP32 lanes' instruction rate."""
     return (points * (4 * dims + 1) + (points + 1) * 8 + edges * 4,
             9.0 * valid * valid)
-
-
-# the column kernels that ``Pipeline.analyze`` launches on the card
-CLUSTERING_KERNELS = ("table_fill", "column_counts", "propagate",
-                      "border_min", "dense_tail")
-
-
-def pipeline_stage_costs(n_points: int, n_people: int,
-                         table_slots: int, column_cap: int, pyp: int,
-                         grid_cells: int, bucket_cap: int,
-                         gs_groups: int = 2) -> Dict[str, Dict[str, float]]:
-    """Modeled MINIMUM work of the port's dominant pipeline stages: the
-    operations that must execute and the device bytes that must move, each
-    array read once and written once. The kernels' terms are
-    ``column_kernel_work`` and ``radius_count_work``, the counts
-    ``chip_smoke.py``'s bounds use, here at uniform occupancy with every
-    point placed in the column table and every point core.
-
-    Terms (S = table_slots, 16-byte slots (x, y, z, stream position);
-    C = S / column_cap columns; n = points, k = people cap;
-    pyp = the table's y extent in columns, unused by the counts;
-    gs_groups = the JAX package's pass groups, unused: the union-find
-    makes one pass):
-      clustering  the cell sort (cell ids and order, 2 lanes rw), then
-                  ``CLUSTERING_KERNELS``: n x 9 x (n / C) pair tests a
-                  pass, n + C slots and end markers scanned, n labels
-                  changed.
-      extract_people  stable sort of labels (2 lanes rw), xyz gathered,
-                  float64 prefix sums of 3 channels rw, k centroids
-                  written; 6 operations a point.
-      density     ``radius_count`` below 2^32 cell x people pairs (every
-                  cell against every person), the bucketed count above it
-                  (9 x bucket_cap pair tests a cell, 6 operations each).
-    """
-    n, k, S = float(n_points), float(n_people), float(table_slots)
-    cells = float(grid_cells)
-    columns = S / float(column_cap)
-    f32, i32, f64 = 4.0, 4.0, 8.0
-    pairs = n * 9.0 * (n / columns)
-    work = column_kernel_work(n, S, min(n, S), columns, pairs, pairs,
-                              min(n + columns, S), n)
-    clustering_bytes = 2 * 2 * i32 * n + sum(
-        work[name][0] for name in CLUSTERING_KERNELS)
-    clustering_flops = sum(work[name][1] for name in CLUSTERING_KERNELS)
-
-    people_bytes = 2 * 2 * i32 * n + 3 * f32 * n + 2 * 3 * f64 * n \
-        + (2 * f32 + 1) * k
-    people_flops = 6.0 * n
-
-    if cells * k < 2.0 ** 32:
-        density_bytes, density_flops = radius_count_work(cells, k, cells * k)
-    else:
-        density_flops = 6.0 * 9 * bucket_cap * cells
-        density_bytes = (2 * f32 + 1) * k + f32 * cells
-
-    return {
-        "clustering": {"flops": clustering_flops,
-                       "bytes": clustering_bytes},
-        "extract_people": {"flops": people_flops, "bytes": people_bytes},
-        "density": {"flops": density_flops, "bytes": density_bytes},
-    }

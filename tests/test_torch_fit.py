@@ -1,7 +1,7 @@
 """The capacity fit measured where the points are (``pipeline.py``:
 ``measure_scan``, ``column_keys``, ``Pipeline._ingest``) and the cloud
 built on the device (``PointCloud.from_tensor``): bit for bit NumPy's
-column keys and ``PointCloud.from_numpy``'s cloud, on the CPU and on the
+column keys and the padded cloud NumPy builds, on the CPU and on the
 card, and the card's capacities equal to the CPU's. The CPU's capacities
 are held to the JAX package's in tests/test_torch_venue.py.
 
@@ -73,8 +73,10 @@ def test_the_extent_is_numpys(device, dtype):
 @pytest.mark.parametrize("device", DEVICES)
 @pytest.mark.parametrize("points", [1_000, 45_000, "recentred"])
 def test_the_device_cloud_is_from_numpys(device, points):
-    """``analyze``'s cloud, cast and padded on the device, is
-    ``PointCloud.from_numpy``'s bit for bit, for a recentred scan too."""
+    """``analyze``'s cloud, cast and padded on the device by
+    ``PointCloud.from_tensor``, is the cloud NumPy builds on its own (a
+    float32 cast, zero padding, the mask of the first N) bit for bit, for
+    a recentred scan too; ``from_numpy`` builds the same."""
     venue = scaled_venue(45_000)
     pts = {1_000: venue[:1_000], 45_000: venue,
            "recentred": venue[:1_000] + UTM_SHIFT}[points]
@@ -82,16 +84,20 @@ def test_the_device_cloud_is_from_numpys(device, points):
     cap = cfg.capacity.max_points
     assert cap > len(pts)
     assert offset.any() == (points == "recentred")
-    want = PointCloud.from_numpy(pts - offset, cap)
+    want = np.zeros((cap, 3), dtype=np.float32)
+    want[:len(pts)] = (pts - offset).astype(np.float32)
+    want_mask = np.arange(cap) < len(pts)
     assert cloud.points.device.type == device
     assert (cloud.points.dtype, cloud.mask.dtype) == (torch.float32,
                                                       torch.bool)
-    np.testing.assert_array_equal(_bits(cloud.points), _bits(want.points))
-    np.testing.assert_array_equal(cloud.mask.cpu().numpy(),
-                                  want.mask.numpy())
+    np.testing.assert_array_equal(_bits(cloud.points), want.view(np.int32))
+    np.testing.assert_array_equal(cloud.mask.cpu().numpy(), want_mask)
     direct = PointCloud.from_tensor(torch.from_numpy(pts - offset).to(
         cloud.points.device), cap)
-    np.testing.assert_array_equal(_bits(direct.points), _bits(want.points))
+    np.testing.assert_array_equal(_bits(direct.points), want.view(np.int32))
+    host = PointCloud.from_numpy(pts - offset, cap, device=cloud.points.device)
+    np.testing.assert_array_equal(_bits(host.points), want.view(np.int32))
+    np.testing.assert_array_equal(host.mask.cpu().numpy(), want_mask)
     with pytest.raises(ValueError, match="exceeds capacity"):
         PointCloud.from_tensor(torch.from_numpy(pts), len(pts) - 1)
 

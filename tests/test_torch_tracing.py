@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from lidar_ai_recommendation_software_tpu_torch.ops.cuda import kernels
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda import eps, kernels
 from lidar_ai_recommendation_software_tpu_torch.pipeline import Pipeline
 from lidar_ai_recommendation_software_tpu_torch.synthetic import (
     sample_venue, scaled_venue, venue_sequence)
@@ -84,10 +84,10 @@ def test_one_analyze_is_one_scan_with_nested_spans(pipe, venue):
     assert device.attrs == {"reason": "first"}
     # the plain eps-adjacency built the all-pairs clustering's edges
     cluster = scan.spans[6]
-    assert cluster.counters == {"preprocess.eps_kernel": 0}
+    assert cluster.counters == {}
     assert set(cluster.attrs) == {"edges"} and cluster.attrs["edges"] > 0
     # no rerun, and the CPU has no host reads
-    assert scan.counters() == {"preprocess.eps_kernel": 0}
+    assert scan.counters() == {}
 
 
 def test_a_recentred_scan_is_counted_once(pipe, venue):
@@ -96,8 +96,7 @@ def test_a_recentred_scan_is_counted_once(pipe, venue):
     (scan,) = rec.scans
     (fit,) = [sp for sp in scan.spans if sp.name == "pipeline.fit"]
     assert fit.counters == {"pipeline.recentred": 1}
-    assert scan.counters() == {"pipeline.recentred": 1,
-                               "preprocess.eps_kernel": 0}
+    assert scan.counters() == {"pipeline.recentred": 1}
     np.testing.assert_array_equal(
         got["coordinate_offset"][:2],
         np.round((venue[:, :2] + UTM_SHIFT[:2]).mean(axis=0)))
@@ -122,8 +121,7 @@ def test_an_overflow_reruns_the_device_program_once(venue):
     assert [sp.attrs["reason"] for sp in devices] == ["first",
                                                       "cluster_overflow"]
     assert devices[1].counters == {"pipeline.reruns.cluster_overflow": 1}
-    assert scan.counters() == {"pipeline.reruns.cluster_overflow": 1,
-                               "preprocess.eps_kernel": 0}
+    assert scan.counters() == {"pipeline.reruns.cluster_overflow": 1}
     assert [sp.name for sp in scan.spans].count("preprocess.cluster") == 2
     assert scan.spans[0].attrs["first"] is True
     assert got["density"]["total_people"] == 446
@@ -207,8 +205,7 @@ def test_one_sequence_is_one_scan_and_its_results_do_not_change():
                      "nodes": cap.grid_cells_x * cap.grid_cells_y}
     # three small frames, each clustered by the plain eps-adjacency
     assert scan.counters() == {
-        "temporal.pair_tests": 2 * k * k + 2 * attrs["nodes"] * k,
-        "preprocess.eps_kernel": 0}
+        "temporal.pair_tests": 2 * k * k + 2 * attrs["nodes"] * k}
     assert "sequence.restarts" not in scan.counters()
 
 
@@ -300,13 +297,14 @@ def card():
 def test_host_reads_of_the_all_pairs_clustering(card):
     frame = scaled_venue(40_960)
     card.analyze(frame)
+    kernels.reset_launch_counts()
     with profiling.tracing() as rec:
         card.analyze(frame)
     (scan,) = rec.scans
     (cluster,) = [sp for sp in scan.spans if sp.name == "preprocess.cluster"]
     # the kernel built the edges with one read (their total); the sweeps
     # read once each, and their number depends on the clusters' shapes
-    assert cluster.counters["preprocess.eps_kernel"] == 1
+    assert kernels.LAUNCHES["eps_edges"] == eps.EPS_LAUNCHES
     assert cluster.attrs["edges"] > 28_000  # a self pair a valid point
     assert 1 <= cluster.counters.get("host_reads", 0) <= 20
     guards = [sp for sp in scan.spans if sp.name == "pipeline.guard"]
