@@ -56,7 +56,11 @@ Run from the root of a checkout. It
      of 100,000 points): one clustering a frame, the card against the
      port's CPU run and the JAX package's recorded values, the flow's
      cosine against the generator's motion at least 0.9, a second run
-     bit-identical, its warm wall time and stages;
+     bit-identical, its warm wall time and stages; and the tracking's
+     kernels at the shapes that run recorded, ``track_match`` (one launch
+     a pair of frames) bit-equal to its plain twin, ``track_nodes`` (one
+     launch) with equal counts and sums within 1e-6 m/s a sample, each
+     rerun bit-identical, timed;
   7. serves the shipped checkpoint through ``NeuralPipeline(device="cuda")
      .analyze`` (the card against the port's CPU run and the JAX package's
      recorded values, two ``fps_batched`` launches on the register route
@@ -155,6 +159,11 @@ KERNELS = {
     # no pallas_call: the all-pairs pass of dbscan_bruteforce, tiled jnp
     "eps_edges": (f"{PORT}/csrc/eps_edges.cu",
                   f"none ({JAX_PKG}/ops/clustering.py:54-96, tiled jnp)"),
+    # no pallas_call: the JAX package tracks in jnp
+    "track_match": (f"{PORT}/csrc/track_pairs.cu",
+                    f"none ({JAX_PKG}/models/temporal.py:29-46, jnp)"),
+    "track_nodes": (f"{PORT}/csrc/track_pairs.cu",
+                    f"none ({JAX_PKG}/models/temporal.py:146-157, jnp)"),
 }
 # the kernels every column-grid clustering launches
 COLUMN_KERNELS = tuple(KERNELS)[1:6]
@@ -196,6 +205,11 @@ JAX_REFERENCE_SEQUENCE = {"people": 3275, "tracked": [479, 469, 476, 478],
 # the flow's cosine against the generator's motion, as
 # tests/test_temporal.py holds the JAX package
 SEQUENCE_COSINE = 0.9
+# track_nodes against its plain twin: a node's velocity sums within this
+# many m/s times its sample count (the kernel adds a node's samples in index
+# order, torch's sum over the slots runs in its own order: float32
+# reassociation of about count samples of ~1 m/s); counts equal
+TRACK_SUM_TOL = 1e-6
 # The shipped checkpoint through the JAX package's
 # NeuralPipeline(use_pallas=False).analyze on the CPU, a fresh pipeline per
 # cloud (``python3 -m tools.jax_reference_values neural``):
@@ -2539,6 +2553,11 @@ def run_sequence(pipe, ident: str) -> dict:
             f"launches radius_count once, got {launches['radius_count']}")
     require(launches["eps_edges"] == 0,
             "the sequence took the all-pairs clustering")
+    require(launches["track_match"] == SEQUENCE_FRAMES - 1
+            and launches["track_nodes"] == 1,
+            f"the tracking launches track_match once a pair and "
+            f"track_nodes once: {launches['track_match']}, "
+            f"{launches['track_nodes']}")
     seq = out["tracked_people"]
     tracked = seq.mask.sum(1).tolist()
     got = {"people": out["density"]["total_people"], "tracked": tracked,
@@ -2568,12 +2587,127 @@ def run_sequence(pipe, ident: str) -> dict:
     check_same(sequence_arrays(out), sequence_arrays(again), True,
                "second sequence run")
     print("second run bit-identical: yes")
+    track_rec = run_track_checks(pipe, frames)
     ms = wall_ms(lambda: pipe.analyze_sequence(frames, dt=SEQUENCE_DT))
     print(f"analyze_sequence, {SEQUENCE_FRAMES} x {SEQUENCE_POINTS:,} "
           f"points: median {ms:.3f} ms of 5 (warm, synchronised) on {ident}; "
           f"{SEQUENCE_FRAMES * SEQUENCE_POINTS / ms * 1e3:.0f} points/s")
     sequence_stages(pipe, frames, ident)
-    return launches
+    return launches, track_rec
+
+
+def sequence_track_inputs(pipe, frames) -> tuple:
+    """The arguments ``analyze_sequence`` hands to ``track.nearest`` (one
+    call a pair of frames) and to ``track.node_sums`` (one call), recorded
+    from one run: ([each pair's], the node sums')."""
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import track
+    seen = {"nearest": [], "node_sums": []}
+    real = {name: getattr(track, name) for name in seen}
+
+    def recorder(name):
+        def record(*args):
+            seen[name].append(tuple(a.clone() for a in args))
+            return real[name](*args)
+        return record
+
+    for name in seen:
+        setattr(track, name, recorder(name))
+    try:
+        pipe.analyze_sequence(frames, dt=SEQUENCE_DT)
+    finally:
+        for name, fn in real.items():
+            setattr(track, name, fn)
+    require(len(seen["nearest"]) == SEQUENCE_FRAMES - 1
+            and len(seen["node_sums"]) == 1,
+            f"the sequence matched {len(seen['nearest'])} pairs and summed "
+            f"the nodes {len(seen['node_sums'])} times")
+    return seen["nearest"], seen["node_sums"][0]
+
+
+def run_track_checks(pipe, frames) -> dict:
+    """``track_match`` and ``track_nodes`` against their plain twins at the
+    shapes the sequence hands them: every pair's nearest slots bit-equal,
+    the node counts equal and each node's sums within TRACK_SUM_TOL times
+    its count, a second run of each bit-identical; one kernel a call (read
+    from a CUDA graph); times, with the bound of one test of each live x
+    live pair and of each node x kept sample at the FP32 lanes' instruction
+    rate (none of a test's operations fuses)."""
+    import torch
+    from lidar_ai_recommendation_software_tpu_torch.ops.cuda import track
+    from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
+        track_match_work, track_nodes_work)
+
+    matches, node_args = sequence_track_inputs(pipe, frames)
+    match_err = 0.0
+    for t, args in enumerate(matches):
+        got, again = track.nearest(*args), track.nearest(*args)
+        want = track.nearest_reference(*args)
+        torch.cuda.synchronize()
+        for what, g, a, w in zip(("fwd", "dmin", "bwd"), got, again, want):
+            match_err = max(match_err, float(
+                (g.to(torch.float64) - w.to(torch.float64)).abs().max()))
+            require(torch.equal(g, w), f"track_match, pair {t}: {what} "
+                    f"differs from its plain version")
+            require(torch.equal(g, a), f"track_match, pair {t}: a second "
+                    f"run differs in {what}")
+        print(f"track_match pair {t}: {args[0].shape[0]} slots, "
+              f"{int(args[1].sum())} x {int(args[3].sum())} live; fwd, dmin "
+              f"and bwd bit-equal, a rerun identical")
+    (wsum, cnt), (w2, c2) = (track.node_sums(*node_args),
+                             track.node_sums(*node_args))
+    want_w, want_c = track.node_sums_reference(*node_args)
+    torch.cuda.synchronize()
+    cnt_err = int_err(cnt, want_c)
+    sum_err = (wsum - want_w).abs().amax(1)
+    per_sample = float((sum_err / cnt.clamp_min(1)).max())
+    print(f"track_nodes: {node_args[0].shape[0]} nodes, "
+          f"{int(node_args[4].sum())} kept samples over "
+          f"{node_args[4].shape[0]} pairs, {int(want_c.sum())} node samples; "
+          f"count error {cnt_err}, sum error {float(sum_err.max()):.3e} m/s, "
+          f"{per_sample:.3e} a sample (limit {TRACK_SUM_TOL})")
+    require(cnt_err == 0, "track_nodes: counts differ from its plain "
+            "version")
+    require(bool((sum_err <= TRACK_SUM_TOL * cnt.to(torch.float32)).all()),
+            f"track_nodes: sums differ by {per_sample} a sample")
+    require(torch.equal(wsum, w2) and torch.equal(cnt, c2),
+            "track_nodes: a second run differs")
+
+    calls = {"track_match": lambda: track.nearest(*matches[-1]),
+             "track_nodes": lambda: track.node_sums(*node_args)}
+    for name, fn in calls.items():
+        seen = device_kernels(fn)
+        print(f"{name}: kernels of one call {seen}")
+        require(len(seen) == 1 and "track_kernel" in next(iter(seen))
+                and next(iter(seen.values())) == 1,
+                f"{name} launches one kernel and nothing else: {seen}")
+
+    slots = matches[-1][0].shape[0]
+    live = [(int(a[1].sum()), int(a[3].sum())) for a in matches]
+    nodes, _, _, _, keep = node_args
+    work = {"track_match": track_match_work(slots, *live[-1]),
+            "track_nodes": track_nodes_work(nodes.shape[0], slots,
+                                            keep.shape[0],
+                                            int(keep.sum()))}
+    plains = {"track_match": lambda: track.nearest_reference(*matches[-1]),
+              "track_nodes": lambda: track.node_sums_reference(*node_args)}
+    out = {}
+    for name, fn in calls.items():
+        ms = cuda_ms(fn)
+        dev_ms = graph_ms(fn)
+        plain = cuda_ms(plains[name], iters=3, warm=1)
+        b_ms, b_by = bound(*work[name], ops_per_s=FP32_INSTR_PER_S)
+        print(f"{name}: kernel {ms:.6f} ms, {dev_ms:.6f} ms from a CUDA "
+              f"graph, plain {plain:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
+              f"{work[name][1] / 6.0:.0f} tests needed")
+        out[name] = {"ms": ms, "graph_ms": dev_ms, "plain_ms": plain,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    # track_match: the largest |got - want| over fwd, dmin and bwd;
+    # track_nodes: the largest velocity-sum error, its counts apart
+    out["track_match"]["max_abs_err"] = match_err
+    out["track_nodes"].update(max_abs_err=float(sum_err.max()),
+                              count_err=cnt_err,
+                              max_sum_err_per_sample=per_sample)
+    return out
 
 
 def run_scan_3m(pipe, ident: str) -> tuple:
@@ -3603,7 +3737,7 @@ def main() -> int:
     phase(f"temporal sequence, {SEQUENCE_FRAMES} x {SEQUENCE_POINTS:,} "
           f"points")
     t0 = time.perf_counter()
-    run_sequence(pipe, ident)
+    launches_seq, track_rec = run_sequence(pipe, ident)
     print(f"phase took {time.perf_counter() - t0:.3f} s")
 
     phase("fps kernels against their plain version")
@@ -3721,6 +3855,13 @@ def main() -> int:
                         library_ms=None,
                         cli_launches=launches_cli["eps_edges"],
                         parallel_launches=launches_parallel["eps_edges"]))
+    # launches in one 4 x 100,000-point analyze_sequence
+    for k in ("track_match", "track_nodes"):
+        records.append(dict(name=k, route="cuda", source=KERNELS[k][0],
+                            replaces=KERNELS[k][1], launches=launches_seq[k],
+                            **track_rec[k], library_ms=None,
+                            cli_launches=launches_cli[k],
+                            parallel_launches=launches_parallel[k]))
     require([r["name"] for r in records] == list(KERNELS), "kernel records")
     require(all(r["graph_ms"] > 0 for r in records),
             "every kernel timed from a CUDA graph")

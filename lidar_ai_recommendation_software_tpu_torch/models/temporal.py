@@ -10,8 +10,11 @@ lattice nodes within one grid step of it. The result is a ``FlowResults``
 of the same layout as ``models/flow.py``'s, with its bottlenecks found by
 the same stencil.
 
-Plain tensor code on the device of its inputs. Two orders of the JAX
-package are kept on purpose, so that both packages give the same answer:
+Tensor code on the device of its inputs. The all-pairs tests (the
+nearest slots of a pair of frames, the samples around each lattice node)
+go through ``ops/cuda/track.py``: one kernel body on the card, its plain
+twins on the CPU. Two orders of the JAX package are kept on purpose, so
+that both packages give the same answer:
 
   - ``argmin`` takes the first index among equal distances, on the CPU
     and on the card (a masked row, all 1e18, matches index 0);
@@ -22,8 +25,8 @@ package are kept on purpose, so that both packages give the same answer:
     card, whose ``index_put_`` with repeated indices is not deterministic,
     gives the same answer.
 
-The node accumulation is a masked sum over (nodes, people), taken in
-chunks of nodes; its float32 sums run in another order than XLA's.
+The node accumulation is a masked sum over (nodes, people); its float32
+sums run in another order than XLA's (and the card's than the CPU's).
 
 ``temporal_flow_multi`` records its stages as ``utils.profiling`` spans:
 ``temporal.flow`` around the call, and inside it ``temporal.match``,
@@ -43,20 +46,11 @@ import torch
 from lidar_ai_recommendation_software_tpu_torch.config import PipelineConfig
 from lidar_ai_recommendation_software_tpu_torch.models.flow import (
     _bottlenecks_monolith)
-from lidar_ai_recommendation_software_tpu_torch.ops.cuda.kernels import (
-    PAIRS_PER_CHUNK)
+from lidar_ai_recommendation_software_tpu_torch.ops.cuda import track
 from lidar_ai_recommendation_software_tpu_torch.types import (
     FlowResults, People)
 from lidar_ai_recommendation_software_tpu_torch.utils import profiling
 from lidar_ai_recommendation_software_tpu_torch.utils.profiling import stage
-
-
-def _squared_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(len(a), len(b)) squared xy distances, dx*dx + dy*dy with each
-    operation rounded on its own, as the JAX package sums its squares."""
-    dx = a[:, None, 0] - b[None, :, 0]
-    dy = a[:, None, 1] - b[None, :, 1]
-    return dx * dx + dy * dy
 
 
 def match_people(prev: People, curr: People,
@@ -67,22 +61,20 @@ def match_people(prev: People, curr: People,
     (K,) bool). A pair matches when each is the other's nearest and they
     lie within ``max_dist``. A float ``max_dist`` is squared in float64
     and rounded once (the JAX package's eager call); a float32 tensor is
-    squared in float32 (its jitted one)."""
-    d2 = _squared_distances(curr.positions, prev.positions)
-    d2 = torch.where(curr.mask[:, None] & prev.mask[None, :], d2,
-                     torch.tensor(1e18, dtype=d2.dtype, device=d2.device))
-    fwd = torch.argmin(d2, dim=1)                # curr -> prev
-    bwd = torch.argmin(d2, dim=0)                # prev -> curr
-    k = curr.positions.shape[0]
-    rows = torch.arange(k, device=d2.device)
-    mutual = bwd[fwd] == rows
+    squared in float32 (its jitted one). The nearest slots both ways come
+    from ``track.nearest``, one kernel launch on the card."""
+    fwd, dmin, bwd = track.nearest(curr.positions, curr.mask,
+                                   prev.positions, prev.mask)
+    dev = fwd.device
+    rows = torch.arange(fwd.shape[0], device=dev)
+    mutual = bwd[fwd.to(torch.int64)] == rows
     if isinstance(max_dist, torch.Tensor):
         limit = max_dist * max_dist
     else:
         limit = torch.tensor(np.float32(float(max_dist) * float(max_dist)),
-                             device=d2.device)
-    close = d2[rows, fwd] <= limit
-    return fwd.to(torch.int32), mutual & close & curr.mask
+                             device=dev)
+    close = dmin <= limit
+    return fwd, mutual & close & curr.mask
 
 
 def _dt_tensor(dt, device: torch.device) -> torch.Tensor:
@@ -131,23 +123,15 @@ def accumulate_samples(nodes: torch.Tensor, g2: torch.Tensor,
     """Every kept sample of every pair onto the ``nodes`` (G, 2) within
     ``g2`` (the squared grid step) of it: the velocity sums (G, 2) and the
     sample counts (G,) int32. Pair t's velocities sit at frame t + 1's
-    ``positions``; the (nodes, people) tests run in chunks of nodes of
-    about ``PAIRS_PER_CHUNK`` pairs."""
-    k = positions.shape[1]
-    wsum = torch.zeros((nodes.shape[0], 2), dtype=positions.dtype,
-                       device=positions.device)
-    cnt = torch.zeros(nodes.shape[0], dtype=torch.int32,
-                      device=positions.device)
-    chunk = max(1, PAIRS_PER_CHUNK // max(k, 1))
-    for t, ((_, _, vel), keep) in enumerate(zip(pairs, keeps)):
-        curr_pos = positions[t + 1]
-        for s in range(0, nodes.shape[0], chunk):
-            near = ((_squared_distances(nodes[s:s + chunk], curr_pos) <= g2)
-                    & keep[None, :])
-            wsum[s:s + chunk] += torch.where(near[..., None], vel[None],
-                                             0.0).sum(1)
-            cnt[s:s + chunk] += near.sum(1, dtype=torch.int32)
-    return wsum, cnt
+    ``positions``; ``track.node_sums`` tests every pair, one kernel launch
+    on the card."""
+    if not pairs:  # one frame: no sample
+        return (positions.new_zeros((nodes.shape[0], 2)),
+                torch.zeros(nodes.shape[0], dtype=torch.int32,
+                            device=positions.device))
+    return track.node_sums(nodes, g2, positions,
+                           torch.stack([vel for _, _, vel in pairs]),
+                           torch.stack(keeps))
 
 
 def temporal_flow_multi(people_seq: People, dt, mins: torch.Tensor,

@@ -4,6 +4,7 @@
 The counterpart of the JAX package's ``ops/pallas/kernels.py``. Beside this
 module, ``columns.py`` wraps the column-table kernels of the venue-scale
 clustering, ``eps.py`` the eps-adjacency of the all-pairs clustering,
+``track.py`` the temporal tracking's nearest slots and node sums,
 ``place.py`` the ``place_dense`` scatter of the centroid pack, and
 ``pointnet.py`` farthest-point sampling and the fused set-abstraction
 MLP of the neural path. Each kernel has a wrapper that
@@ -48,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"radius_count": 0, "table_fill": 0, "dense_tail": 0,
             "column_counts": 0, "border_min": 0, "propagate": 0,
             "place_dense": 0, "fps_single": 0, "fps_batched": 0,
-            "sa_mlp_pool": 0, "eps_edges": 0}
+            "sa_mlp_pool": 0, "eps_edges": 0, "track_match": 0,
+            "track_nodes": 0}
 # fps launches by the route of its launch plan (ops/cuda/pointnet.py)
 FPS_ROUTES = {"registers": 0, "block": 0, "cluster": 0, "stream": 0}
 
@@ -68,6 +70,8 @@ _SIGNATURES = {
     "sa_mlp_pool_launch": [_P] * 8 + [_I] * 7 + [_P, _P],
     "eps_count_launch": [_P, _P, _I, _F] + [_I] * 4 + [_P, _P],
     "eps_fill_launch": [_P, _P, _I, _F] + [_I] * 4 + [_P] * 4,
+    "track_match_launch": [_P] * 4 + [_I] * 3 + [_P] * 3,
+    "track_nodes_launch": [_P] * 5 + [_I] * 5 + [_P] * 3,
 }
 
 # the most shared memory a block of sm_90 may use

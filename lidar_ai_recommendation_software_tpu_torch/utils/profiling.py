@@ -13,8 +13,9 @@ UX wrappers). This module provides:
     ``Pipeline.analyze`` call), with its attributes and counters
     (``count``), the host reads torch reports among them;
   - the work counts of the hand-written kernels (``column_kernel_work``,
-    ``radius_count_work``, ``eps_edges_work``): the bytes and operations
-    each must spend, which ``chip_smoke.py`` bounds the kernels by.
+    ``radius_count_work``, ``eps_edges_work``, ``track_match_work``,
+    ``track_nodes_work``): the bytes and operations each must spend,
+    which ``chip_smoke.py`` bounds the kernels by.
 
 Outside a session a span costs two clock reads and an aggregate update,
 and a counter one check of a module-level flag.
@@ -314,3 +315,26 @@ def eps_edges_work(points: float, dims: int, valid: float,
     counts at the FP32 lanes' instruction rate."""
     return (points * (4 * dims + 1) + (points + 1) * 8 + edges * 4,
             9.0 * valid * valid)
+
+
+def track_match_work(slots: float, live_a: float,
+                     live_b: float) -> Tuple[float, float]:
+    """(bytes, operations) of ``track_match``: both frames' slots (8 bytes
+    and a mask byte) read once, each slot's nearest index (4 bytes) and the
+    first frame's distances (4 bytes) written once; 6 operations (2
+    differences, 2 products, a sum, a compare) a pair of live slots, tested
+    once. None of them fuses, so ``chip_smoke.py`` bounds the kernel by
+    these counts at the FP32 lanes' instruction rate."""
+    return (2 * slots * 9 + 2 * slots * 4 + slots * 4,
+            6.0 * live_a * live_b)
+
+
+def track_nodes_work(nodes: float, slots: float, pairs: float,
+                     kept: float) -> Tuple[float, float]:
+    """(bytes, operations) of ``track_nodes``: the nodes (8 bytes) and, of
+    each pair, the later frame's slots (8 bytes), their velocities (8
+    bytes) and keep flags (a byte) read once, each node's sums (8 bytes)
+    and count (4 bytes) written once; 6 operations a test of a node and a
+    kept sample (``kept`` over every pair), as ``track_match_work``."""
+    return (nodes * 8 + pairs * slots * 17 + nodes * 12,
+            6.0 * nodes * kept)

@@ -202,10 +202,13 @@ def test_venue_scale_card_matches_cpu(cuda_device):
               "propagate", "radius_count"):
         assert kernels.LAUNCHES[k] > 0, k
     assert kernels.LAUNCHES["eps_edges"] == 0  # not the all-pairs backend
+    for k in ("track_match", "track_nodes"):  # a single scan tracks nobody
+        assert kernels.LAUNCHES[k] == 0, k
     assert set(kernels.LAUNCHES) == {
         "radius_count", "table_fill", "dense_tail", "column_counts",
         "border_min", "propagate", "place_dense", "fps_single",
-        "fps_batched", "sa_mlp_pool", "eps_edges"}
+        "fps_batched", "sa_mlp_pool", "eps_edges", "track_match",
+        "track_nodes"}
     cpu = Pipeline(device="cpu").analyze(pts)
     np.testing.assert_array_equal(card["processed"].labels.cpu().numpy(),
                                   cpu["processed"].labels.numpy())
