@@ -31,7 +31,7 @@ from lidar_ai_recommendation_software_tpu_torch.ops.cuda.eps import (
 from lidar_ai_recommendation_software_tpu_torch.ops.cuda.place import (
     place_dense)
 from lidar_ai_recommendation_software_tpu_torch.utils.profiling import (
-    stage)
+    count, stage)
 
 # Largest clustering buffer the all-pairs backend takes for the monolith
 # variant; above it the column-grid connected components take over, as in
@@ -192,27 +192,38 @@ def cluster_centroids(points: torch.Tensor, labels: torch.Tensor,
     dropped).
 
     Deterministic on every device: a stable sort by cluster id, a float64
-    prefix sum, and differences at the segment ends; no float atomics.
+    prefix sum, and differences at the segment ends; no float atomics and
+    no read of the device.
     Counts are exact integers. Buffers of more than ``SEGSUM_MAX_POINTS``
     rows (and fewer than 2^24) pack the segment ends with ``place_dense``
     (``_centroids_sorted``), as the JAX package does; the others read them
-    by index."""
+    by index. Runs in a ``density.centroids`` span whose ``route``
+    (``"place_dense"`` or ``"indexed"``, from the buffer's static size),
+    ``rows`` (N) and ``slots`` (K) are known before any work, and counts
+    ``density.routes.<route>`` once; neither reads the device."""
     k = max_clusters
     n = points.shape[0]
-    seg = torch.where(labels >= 0, labels.to(torch.int64), k).clamp_max(k)
-    if SEGSUM_MAX_POINTS < n < (1 << 24):
-        sums, cnts = _centroids_sorted(points, seg, k)
-        valid = cnts > 0
-        cents = sums / cnts.clamp_min(1.0)[:, None]
-    else:
-        _, prefix = _sorted_prefix(points, seg)
-        prefix = torch.nn.functional.pad(prefix, (1, 0))
-        cnts = torch.bincount(seg, minlength=k + 1)[:k]
-        end = torch.cumsum(cnts, 0)
-        sums = (prefix[:, end] - prefix[:, end - cnts]).T
-        valid = cnts > 0
-        cents = (sums / cnts.clamp_min(1)[:, None].to(torch.float64)).to(
-            points.dtype)
-    # ids are dense 0..C-1, so the clusters past K number max_id + 1 - K
-    overflow = (labels.max().clamp_min(-1) + 1 - k).clamp_min(0)
-    return cents, valid, overflow.to(torch.int32)
+    route = ("place_dense" if SEGSUM_MAX_POINTS < n < (1 << 24)
+             else "indexed")
+    with stage("density.centroids", route=route, rows=n, slots=k):
+        count("density.routes." + route)
+        seg = torch.where(labels >= 0, labels.to(torch.int64), k).clamp_max(k)
+        if route == "place_dense":
+            sums, cnts = _centroids_sorted(points, seg, k)
+            valid = cnts > 0
+            cents = sums / cnts.clamp_min(1.0)[:, None]
+        else:
+            seg_s, prefix = _sorted_prefix(points, seg)
+            prefix = torch.nn.functional.pad(prefix, (1, 0))
+            # each id's end in the sorted rows; not bincount, which on the
+            # card reads the ids' range to the host
+            end = torch.searchsorted(seg_s, torch.arange(
+                k, dtype=seg_s.dtype, device=seg_s.device), right=True)
+            cnts = end - torch.nn.functional.pad(end[:-1], (1, 0))
+            sums = (prefix[:, end] - prefix[:, end - cnts]).T
+            valid = cnts > 0
+            cents = (sums / cnts.clamp_min(1)[:, None].to(torch.float64)).to(
+                points.dtype)
+        # ids are dense 0..C-1, so the clusters past K number max_id + 1 - K
+        overflow = (labels.max().clamp_min(-1) + 1 - k).clamp_min(0)
+        return cents, valid, overflow.to(torch.int32)

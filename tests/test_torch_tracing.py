@@ -30,9 +30,9 @@ ANALYZE_SPANS = [
     ("pipeline.analyze", None), ("pipeline.prepare", 0),
     ("pipeline.upload", 0), ("pipeline.fit", 0), ("pipeline.device", 0),
     ("preprocess", 4), ("preprocess.cluster", 5), ("density.people", 4),
-    ("density.grid", 4), ("flow.field", 4), ("pipeline.guard", 0),
-    ("pipeline.guard", 0), ("pipeline.guard", 0), ("pipeline.readback", 0),
-    ("pipeline.recommend", 0)]
+    ("density.centroids", 7), ("density.grid", 4), ("flow.field", 4),
+    ("pipeline.guard", 0), ("pipeline.guard", 0), ("pipeline.guard", 0),
+    ("pipeline.readback", 0), ("pipeline.recommend", 0)]
 
 
 @pytest.fixture(scope="module")
@@ -86,8 +86,14 @@ def test_one_analyze_is_one_scan_with_nested_spans(pipe, venue):
     cluster = scan.spans[6]
     assert cluster.counters == {}
     assert set(cluster.attrs) == {"edges"} and cluster.attrs["edges"] > 0
+    # the fixture's buffer is below the place_dense switch
+    cents, cap = scan.spans[8], pipe.fit_capacity(venue).capacity
+    assert cents.attrs == {"route": "indexed",
+                           "rows": cap.max_points,
+                           "slots": cap.max_people}
+    assert cents.counters == {"density.routes.indexed": 1}
     # no rerun, and the CPU has no host reads
-    assert scan.counters() == {}
+    assert scan.counters() == {"density.routes.indexed": 1}
 
 
 def test_a_recentred_scan_is_counted_once(pipe, venue):
@@ -96,7 +102,8 @@ def test_a_recentred_scan_is_counted_once(pipe, venue):
     (scan,) = rec.scans
     (fit,) = [sp for sp in scan.spans if sp.name == "pipeline.fit"]
     assert fit.counters == {"pipeline.recentred": 1}
-    assert scan.counters() == {"pipeline.recentred": 1}
+    assert scan.counters() == {"pipeline.recentred": 1,
+                               "density.routes.indexed": 1}
     np.testing.assert_array_equal(
         got["coordinate_offset"][:2],
         np.round((venue[:, :2] + UTM_SHIFT[:2]).mean(axis=0)))
@@ -121,7 +128,9 @@ def test_an_overflow_reruns_the_device_program_once(venue):
     assert [sp.attrs["reason"] for sp in devices] == ["first",
                                                       "cluster_overflow"]
     assert devices[1].counters == {"pipeline.reruns.cluster_overflow": 1}
-    assert scan.counters() == {"pipeline.reruns.cluster_overflow": 1}
+    # each device run extracts the people once
+    assert scan.counters() == {"pipeline.reruns.cluster_overflow": 1,
+                               "density.routes.indexed": 2}
     assert [sp.name for sp in scan.spans].count("preprocess.cluster") == 2
     assert scan.spans[0].attrs["first"] is True
     assert got["density"]["total_people"] == 446
@@ -203,9 +212,11 @@ def test_one_sequence_is_one_scan_and_its_results_do_not_change():
     cap = seq_pipe.fit_capacity(frames[-1]).capacity
     assert attrs == {"frames": 3, "slots": k,
                      "nodes": cap.grid_cells_x * cap.grid_cells_y}
-    # three small frames, each clustered by the plain eps-adjacency
+    # three small frames, each clustered by the plain eps-adjacency and
+    # its centroids read by index
     assert scan.counters() == {
-        "temporal.pair_tests": 2 * k * k + 2 * attrs["nodes"] * k}
+        "temporal.pair_tests": 2 * k * k + 2 * attrs["nodes"] * k,
+        "density.routes.indexed": 3}
     assert "sequence.restarts" not in scan.counters()
 
 
